@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (list_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--requests 3] [--report out.json]
+    python3 chip_smoke.py [--seed 0] [--requests 3] [--steps 3]
+                          [--report out.json]
 
 Run from the repository root.  Phases (any failure exits non-zero):
 
 1. Read the card: name and power limit from nvidia-smi.
-2. Build every CUDA kernel of the main path from ``list_tpu_torch/csrc``
-   (one nvcc per source, in parallel) and the native mesh library.
+2. Build every CUDA kernel of both paths from ``list_tpu_torch/csrc`` (one
+   nvcc per source, in parallel) and the native mesh library.
 3. Kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes, with CUDA-event median times of the kernel,
-   the plain version and one PyTorch library call computing the same
-   function (timed here only; the port never calls it).
-4. Path phase: the full-width default LIST (vox_res 128) with seeded random
-   weights serves ``--requests`` seeded 224x224 images through
+   at its paths' shapes, with CUDA-event median times of the kernel, the
+   plain version and one PyTorch library call computing the same function
+   (timed here only; the port never calls it): K2 at the inference shapes
+   (batch 1) and the train step's forward and dx shapes (batch 8), K3 at
+   the train step's shapes, K1 at the dense decode's; and the
+   differentiable conv3x3x3's dx and dk against autograd through the plain
+   version.
+4. Inference path: the full-width default LIST (vox_res 128) with seeded
+   random weights serves ``--requests`` seeded 224x224 images through
    ``LISTExecutor.test(..., eval_pred=True)`` (dense 128^3 SDF -> marching
-   cubes -> metrics against a sphere), with every kernel's launch counter
-   set to 0 just before and read just after.  A small input (vox_res 32)
-   is checked against the CPU plain path.
-5. Prints one JSON line of kernel numbers, then the device line.
+   cubes -> metrics against a sphere).  A small input (vox_res 32) is
+   checked against the CPU plain path.
+5. Train path: the full-width LIST (vox_res 128, batch 8 x 32,768 queries,
+   remat, 4 query chunks) with seeded random weights takes 1 warm and
+   ``--steps`` timed ``LISTExecutor.train`` steps on batches of the
+   synthetic dataset; losses, step_s and peak device memory per step, and
+   the per-step launch counts asserted.  A small input (vox_res 32, batch 2,
+   1,024 queries, full widths) checks one step's losses, every gradient and
+   the updated BatchNorm statistics against the CPU plain path.
+6. Prints one JSON line of kernel numbers, then the device line.
+
+Every kernel's launch counter is set to 0 just before each path and read
+just after it.
 
 ``--report PATH`` also writes every number of the run to one JSON file.
 """
@@ -70,13 +84,24 @@ def card() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def conv_phase(dev, stencil3d):
-    """K2 at the voxel encoder's five full-resolution shapes (1->1 three
-    times, 1->16, 16->16) on 128^3."""
-    g = torch.Generator(device='cpu').manual_seed(11)
+def _total(per, unit):
+    """Sum of per-shape numbers weighted by each shape's calls per unit."""
+    tot = lambda k: sum(r[k] * r['calls'] for r in per)  # noqa: E731
+    t_ops = sum(r['bound_ms'] * r['calls'] for r in per
+                if r['bound_by'] == 'operations')
+    return dict(unit=unit, max_abs_err=max(r['max_abs_err'] for r in per),
+                ms=tot('ms'), plain_ms=tot('plain_ms'),
+                library_ms=tot('library_ms'), bound_ms=tot('bound_ms'),
+                bound_by='operations' if 2 * t_ops >= tot('bound_ms')
+                else 'bytes', per_shape=per)
+
+
+def conv_phase(dev, stencil3d, batch, shapes, unit, plain_reps=5):
+    """K2 on (batch, Ci, 128^3) for each (Ci, Co, calls per unit)."""
+    g = torch.Generator(device='cpu').manual_seed(11 + batch)
     per = []
-    for ci, co, count in ((1, 1, 3), (1, 16, 1), (16, 16, 1)):
-        x = torch.rand(1, ci, 128, 128, 128, generator=g).to(dev)
+    for ci, co, count in shapes:
+        x = torch.rand(batch, ci, 128, 128, 128, generator=g).to(dev)
         bound = 1.0 / np.sqrt(27 * ci)
         w = ((torch.rand(co, ci, 3, 3, 3, generator=g) * 2 - 1)
              * bound).to(dev)
@@ -87,26 +112,95 @@ def conv_phase(dev, stencil3d):
         tol = 1e-4 + 1e-4 * float(ref.abs().max())
         ok = bool(torch.isfinite(y).all()) and err <= tol
         b_ms, b_by = stencil3d.bound_ms(tuple(x.shape), co)
-        row = dict(shape=f'{ci}->{co} @128^3', calls_per_request=count,
+        row = dict(shape=f'{ci}->{co} @{batch}x128^3', calls=count,
                    max_abs_err=err, tol=tol, ok=ok,
                    ms=time_ms(lambda: stencil3d.conv3x3x3(x, w), 20),
                    plain_ms=time_ms(
-                       lambda: stencil3d.conv3x3x3_plain(x, w), 5),
+                       lambda: stencil3d.conv3x3x3_plain(x, w), plain_reps,
+                       1),
                    library_ms=time_ms(
                        lambda: F.conv3d(x, w, padding=1), 20),
                    bound_ms=b_ms, bound_by=b_by)
         print('kernel conv3x3x3', json.dumps(row), flush=True)
         per.append(row)
         del x, w, y, ref
+        torch.cuda.empty_cache()
     if not all(r['ok'] for r in per):
         fail('conv3x3x3 disagrees with its plain version')
-    # one request's five convolutions
-    tot = lambda k: sum(r[k] * r['calls_per_request'] for r in per)  # noqa
-    return dict(max_abs_err=max(r['max_abs_err'] for r in per),
-                ms=tot('ms'), plain_ms=tot('plain_ms'),
-                library_ms=tot('library_ms'), bound_ms=tot('bound_ms'),
-                bound_by='operations' if per[-1]['bound_by'] == 'operations'
-                else 'bytes', per_shape=per)
+    return _total(per, unit)
+
+
+def dk_phase(dev, stencil3d, batch=8):
+    """K3 at the train step's five weight gradients (1->1 three times,
+    1->16, 16->16) on (8, Ci, 128^3): against the plain version (tolerance
+    1e-4 * max|plain|), twice for bit-identical results, and timed beside
+    the plain version and cuDNN's conv3d_weight (TF32 off)."""
+    g = torch.Generator(device='cpu').manual_seed(13)
+    per = []
+    for ci, co, count in ((1, 1, 3), (1, 16, 1), (16, 16, 1)):
+        x = torch.rand(batch, ci, 128, 128, 128, generator=g).to(dev)
+        dy = torch.randn(batch, co, 128, 128, 128, generator=g).to(dev)
+        dk = stencil3d.conv3x3x3_dk(x, dy)
+        torch.cuda.synchronize()
+        ref = stencil3d.conv3x3x3_dk_plain(x, dy)
+        err = float((dk - ref).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        same = bool(torch.equal(stencil3d.conv3x3x3_dk(x, dy), dk))
+        ok = bool(torch.isfinite(dk).all()) and err <= tol and same
+        b_ms, b_by = stencil3d.dk_bound_ms(tuple(x.shape), co)
+        wshape = (co, ci, 3, 3, 3)
+        row = dict(shape=f'{ci}->{co} @{batch}x128^3', calls=count,
+                   max_abs_err=err, max_abs_plain=float(ref.abs().max()),
+                   tol=tol, bit_identical_rerun=same, ok=ok,
+                   ms=time_ms(lambda: stencil3d.conv3x3x3_dk(x, dy), 10),
+                   plain_ms=time_ms(
+                       lambda: stencil3d.conv3x3x3_dk_plain(x, dy), 3, 1),
+                   library_ms=time_ms(lambda: torch.nn.grad.conv3d_weight(
+                       x, wshape, dy, padding=1), 10),
+                   bound_ms=b_ms, bound_by=b_by)
+        print('kernel conv3x3x3_dk', json.dumps(row), flush=True)
+        per.append(row)
+        del x, dy, dk, ref
+        torch.cuda.empty_cache()
+    if not all(r['ok'] for r in per):
+        fail('conv3x3x3_dk disagrees with its plain version or is not '
+             'deterministic')
+    return _total(per, 'train step (5 launches, batch 8, 128^3)')
+
+
+def grad_fn_phase(dev, stencil3d, batch=2):
+    """The differentiable conv3x3x3 on the card (K2 forward, K2 dx, K3 dk)
+    against autograd through the plain version, at 16->16 and 1->16 on
+    (2, Ci, 128^3): dx and dk within 1e-4 * max|plain|."""
+    g = torch.Generator(device='cpu').manual_seed(14)
+    rows = []
+    for ci, co in ((16, 16), (1, 16)):
+        x0 = torch.rand(batch, ci, 128, 128, 128, generator=g).to(dev)
+        w0 = ((torch.rand(co, ci, 3, 3, 3, generator=g) * 2 - 1)
+              / np.sqrt(27 * ci)).to(dev)
+        r = torch.randn(batch, co, 128, 128, 128, generator=g).to(dev)
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = stencil3d.conv3x3x3(x, w)
+        if y.grad_fn is None:
+            fail('conv3x3x3 on a CUDA tensor has no grad_fn')
+        (y * r).sum().backward()
+        xp, wp = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        (stencil3d.conv3x3x3_plain(xp, wp) * r).sum().backward()
+        torch.cuda.synchronize()
+        row = dict(shape=f'{ci}->{co} @{batch}x128^3')
+        for name, a, b in (('dx', x.grad, xp.grad), ('dk', w.grad, wp.grad)):
+            row[f'{name}_max_abs_err'] = float((a - b).abs().max())
+            row[f'{name}_tol'] = 1e-4 * float(b.abs().max())
+        row['ok'] = all(row[f'{n}_max_abs_err'] <= row[f'{n}_tol']
+                        for n in ('dx', 'dk'))
+        print('conv3x3x3 gradients', json.dumps(row), flush=True)
+        rows.append(row)
+        del x0, w0, r, x, w, y, xp, wp
+        torch.cuda.empty_cache()
+    if not all(r['ok'] for r in rows):
+        fail('conv3x3x3 gradients on the card disagree with autograd '
+             'through the plain version')
+    return rows
 
 
 def head_phase(dev, fused_fc0, n: int):
@@ -162,10 +256,123 @@ def head_phase(dev, fused_fc0, n: int):
     return row
 
 
+def reset_counts(stencil3d, fused_fc0) -> None:
+    stencil3d.launches = stencil3d.dx_launches = stencil3d.dk_launches = 0
+    fused_fc0.launches = 0
+
+
+def read_counts(stencil3d, fused_fc0) -> dict:
+    return dict(conv3x3x3=stencil3d.launches,
+                conv3x3x3_dx=stencil3d.dx_launches,
+                conv3x3x3_dk=stencil3d.dk_launches,
+                fused_stack_head=fused_fc0.launches)
+
+
+# K2 per train step: 5 forward + the same 5 recomputed under remat + dx of
+# the four convolutions whose input needs a gradient (not conv_0's: its
+# input is the occupancy grid); K3: one dk per convolution.
+STEP_LAUNCHES = dict(conv3x3x3=14, conv3x3x3_dx=4, conv3x3x3_dk=5,
+                     fused_stack_head=0)
+
+
+def train_path(ex, batches, stencil3d, fused_fc0):
+    """One warm step, then ``len(batches) - 1`` timed LISTExecutor.train
+    steps; the launch counters are set to 0 after the warm step and
+    checked after every step."""
+    ex.train(batches[0])
+    torch.cuda.synchronize()
+    reset_counts(stencil3d, fused_fc0)
+    steps = []
+    for i, b in enumerate(batches[1:]):
+        before = read_counts(stencil3d, fused_fc0)
+        torch.cuda.reset_peak_memory_stats()
+        _, losses = ex.train(b)
+        after = read_counts(stencil3d, fused_fc0)
+        rec = dict(step=i, step_s=ex.timings['step_s'],
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   losses={k: float(v) for k, v in losses.items()},
+                   launches={k: after[k] - before[k] for k in after})
+        print('train step', json.dumps(rec), flush=True)
+        steps.append(rec)
+        if not all(np.isfinite(v) for v in rec['losses'].values()):
+            fail(f'train step {i}: a loss is not finite')
+        if rec['launches'] != STEP_LAUNCHES:
+            fail(f'train step {i}: launches {rec["launches"]}, expected '
+                 f'{STEP_LAUNCHES}')
+    total = read_counts(stencil3d, fused_fc0)
+    print('train path launches', json.dumps(total), flush=True)
+    return steps, total
+
+
+def card_gradient_check(cfg, model, batch, LISTExecutor, total_loss,
+                        device='cuda'):
+    """One train step's losses, gradients and updated BatchNorm statistics
+    on ``device`` (f32) against the CPU plain path in f32 and in f64 (the
+    exact reference), from the same weights and batch.
+
+    Every parameter's gradient must be present on the card, non-zero where
+    the CPU's is, and no further from the f64 result than
+    4 * (the CPU f32 error) + 2e-3 * max|f64|: upstream of the spatial
+    transformer's BatchNorm1d over a batch of 2 an f32 gradient is
+    ill-conditioned on any device, so the card is held to the CPU's own f32
+    accuracy there and to 2e-3 of each gradient's scale elsewhere.  Losses
+    likewise with 1e-3 of their value (one flipped sign of the 2,048
+    queries moves ignore_sdf_accuracy by 4.9e-4), statistics with 1e-4 of
+    their scale."""
+    runs = {}
+    for name, dev, dt in (('card', device, torch.float32),
+                          ('cpu', 'cpu', torch.float32),
+                          ('cpu64', 'cpu', torch.float64)):
+        m = copy.deepcopy(model).to(dt)
+        ex = LISTExecutor(cfg, m, device=dev)
+        t = {k: torch.as_tensor(np.asarray(v), device=ex.device)
+             for k, v in ex._train_keys(batch).items()}
+        m.train()
+        pred = m(t['rgb_image'].to(dt), t['points'].to(dt))
+        losses = ex.calc_loss(pred, (t['occ'].float(), t['values'].to(dt)))
+        total_loss(losses).backward()
+        m.eval()
+        f64 = lambda a: None if a is None else a.detach().double().cpu()  # noqa
+        runs[name] = (
+            {k: torch.tensor(float(v.detach()), dtype=torch.float64)
+             for k, v in losses.items()},
+            {k: f64(p.grad) for k, p in m.named_parameters()},
+            {k: f64(v) for k, v in m.state_dict().items() if 'running' in k})
+        del ex, m, pred, losses, t
+    bad, worst = [], {}
+    for part, rel in ((0, 1e-3), (1, 2e-3), (2, 1e-4)):
+        card, cpu, ref = (runs[n][part] for n in ('card', 'cpu', 'cpu64'))
+        for k, r in ref.items():
+            if r is None:
+                continue
+            c, g = cpu[k], card[k]
+            if g is None or not bool(torch.isfinite(g).all()) or (
+                    float(c.abs().max()) > 0 and float(g.abs().max()) == 0):
+                bad.append((k, 'missing, not finite or zero on the card'))
+                continue
+            err = float((g - r).abs().max())
+            tol = 4 * float((c - r).abs().max()) + rel * float(
+                r.abs().max()) + 1e-12
+            worst[k] = err / tol
+            if err > tol:
+                bad.append((k, err, tol))
+    losses = {n: {k: float(v) for k, v in runs[n][0].items()} for n in runs}
+    vox = [k for k in runs['cpu'][1] if k.startswith('vox_encoder.')]
+    rec = dict(ok=not bad, bad=bad[:20], losses=losses,
+               worst_err_over_tol=max(worst.values()),
+               vox_encoder_params=len(vox),
+               vox_encoder_nonzero_on_card=sum(
+                   float(runs['card'][1][k].abs().max()) > 0 for k in vox))
+    print('card gradient check', json.dumps(rec), flush=True)
+    return rec
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--requests', type=int, default=3)
+    ap.add_argument('--steps', type=int, default=3,
+                    help='timed train steps after one warm step')
     ap.add_argument('--report', default=None,
                     help='also write the run\'s numbers to this JSON file')
     args = ap.parse_args()
@@ -177,10 +384,11 @@ def main():
     try:
         from list_tpu_torch import native
         from list_tpu_torch.config import default_config
+        from list_tpu_torch.data import SyntheticSDFDataset, collate
         from list_tpu_torch.models import LIST
         from list_tpu_torch.ops.cuda import (KERNEL_SOURCES, build,
                                              fused_fc0, stencil3d)
-        from list_tpu_torch.train import LISTExecutor
+        from list_tpu_torch.train import LISTExecutor, total_loss
         from list_tpu_torch.utils.meshio import make_icosphere
     except ImportError as e:
         fail(f'the list_tpu_torch package is not beside chip_smoke.py ({e})')
@@ -212,8 +420,19 @@ def main():
 
     # ---- kernel phase -----------------------------------------------------
     with torch.inference_mode():
-        conv = conv_phase(dev, stencil3d)
+        conv = conv_phase(dev, stencil3d, 1, ((1, 1, 3), (1, 16, 1),
+                                              (16, 16, 1)),
+                          'request (5 launches, batch 1, 128^3)')
         head = head_phase(dev, fused_fc0, 128 ** 3)
+        torch.cuda.empty_cache()
+        # a train step: forward 1->1 x3, 1->16, 16->16, twice (remat), and
+        # dx 1->1 x2, 16->1, 16->16
+        conv_train = conv_phase(dev, stencil3d, 8, ((1, 1, 8), (1, 16, 2),
+                                                    (16, 16, 3), (16, 1, 1)),
+                                'train step (14 launches, batch 8, 128^3)',
+                                plain_reps=2)
+        dk = dk_phase(dev, stencil3d)
+    grads_on_card = grad_fn_phase(dev, stencil3d)
     torch.cuda.empty_cache()
 
     # ---- path phase: full-width LIST at 128^3 ------------------------------
@@ -236,8 +455,7 @@ def main():
     print(f'fc_out bias shifted by {-shift:.6g}', flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    stencil3d.launches = 0
-    fused_fc0.launches = 0
+    reset_counts(stencil3d, fused_fc0)
     requests = []
     for i, img in enumerate(imgs):
         np.random.seed(args.seed + i)
@@ -255,14 +473,15 @@ def main():
             fail(f'request {i}: empty mesh')
         if not score or not all(np.isfinite(v) for v in score.values()):
             fail(f'request {i}: metrics missing or not finite: {score}')
-    launches = {'conv3x3x3': stencil3d.launches,
-                'fused_stack_head': fused_fc0.launches}
+    launches = read_counts(stencil3d, fused_fc0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print('path launches', json.dumps(launches),
+    print('inference path launches', json.dumps(launches),
           f'peak_device_gb {peak_gb:.2f}', flush=True)
-    if launches['conv3x3x3'] != 5 * args.requests:
-        fail(f'conv3x3x3 launched {launches["conv3x3x3"]} times, expected '
-             f'{5 * args.requests}')
+    if launches != dict(conv3x3x3=5 * args.requests, conv3x3x3_dx=0,
+                        conv3x3x3_dk=0,
+                        fused_stack_head=launches['fused_stack_head']):
+        fail(f'inference path launches {launches}, expected conv3x3x3 '
+             f'{5 * args.requests} and no dx or dk')
     if launches['fused_stack_head'] < args.requests:
         fail('fused_stack_head was not launched for every request')
 
@@ -280,24 +499,76 @@ def main():
           f'{ref_err:.3g} tol {ref_tol:.3g}', flush=True)
     if not (np.isfinite(a).all() and ref_err <= ref_tol):
         fail('the card disagrees with the CPU plain path on a small input')
+    del ex, model, cpu_model, m_gpu
+    torch.cuda.empty_cache()
 
+    # ---- train path: full-width LIST, batch 8 x 32,768 queries, 128^3 -----
+    tcfg = default_config(vox_res=128, train_batch_size=8,
+                          sample_point_density=32768, sdf_scale=10.0)
+    t0 = time.perf_counter()
+    ds = SyntheticSDFDataset(tcfg, 'train', n_shapes=8)
+    batches = [collate([ds[i] for i in range(8)])
+               for _ in range(args.steps + 1)]
+    print(f'train data {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.manual_seed(args.seed)
+    tex = LISTExecutor(tcfg, LIST.from_config(tcfg))
+    tex.init_optimizer()
+    steps, train_launches = train_path(tex, batches, stencil3d, fused_fc0)
+    del tex, batches
+    torch.cuda.empty_cache()
+
+    # ---- small train step against the CPU plain path ----------------------
+    gcfg = default_config(vox_res=32, train_batch_size=2,
+                          sample_point_density=1024, sdf_scale=10.0)
+    gds = SyntheticSDFDataset(gcfg, 'train', n_shapes=2)
+    torch.manual_seed(args.seed + 1)
+    gcheck = card_gradient_check(gcfg, LIST.from_config(gcfg),
+                                 collate([gds[0], gds[1]]), LISTExecutor,
+                                 total_loss, 'cuda')
+    if not gcheck['ok']:
+        fail(f'one train step on the card disagrees with the CPU plain '
+             f'path: {json.dumps(gcheck["bad"])}')
+
+    k2_train = {'forward': train_launches['conv3x3x3']
+                - train_launches['conv3x3x3_dx'],
+                'dx': train_launches['conv3x3x3_dx']}
     kernels = [
         dict(name='conv3x3x3', route='cuda', source=stencil3d.SOURCE,
-             replaces=stencil3d.REPLACES, launches=launches['conv3x3x3'],
-             max_abs_err=conv['max_abs_err'], ms=conv['ms'],
-             plain_ms=conv['plain_ms'], bound_ms=conv['bound_ms'],
-             bound_by=conv['bound_by'], library_ms=conv['library_ms']),
+             replaces=stencil3d.REPLACES,
+             launches=launches['conv3x3x3'] + train_launches['conv3x3x3'],
+             launches_by_path={'inference': launches['conv3x3x3'],
+                               'train_forward': k2_train['forward'],
+                               'train_dx': k2_train['dx']},
+             per=conv_train['unit'],
+             max_abs_err=max(conv['max_abs_err'], conv_train['max_abs_err']),
+             ms=conv_train['ms'], plain_ms=conv_train['plain_ms'],
+             bound_ms=conv_train['bound_ms'],
+             bound_by=conv_train['bound_by'],
+             library_ms=conv_train['library_ms']),
+        dict(name='conv3x3x3_dk', route='cuda', source=stencil3d.DK_SOURCE,
+             replaces=stencil3d.DK_REPLACES,
+             launches=train_launches['conv3x3x3_dk'],
+             launches_by_path={'inference': launches['conv3x3x3_dk'],
+                               'train': train_launches['conv3x3x3_dk']},
+             per=dk['unit'], max_abs_err=dk['max_abs_err'], ms=dk['ms'],
+             plain_ms=dk['plain_ms'], bound_ms=dk['bound_ms'],
+             bound_by=dk['bound_by'], library_ms=dk['library_ms']),
         dict(name='fused_stack_head', route='cuda', source=fused_fc0.SOURCE,
              replaces=fused_fc0.REPLACES,
              launches=launches['fused_stack_head'],
+             launches_by_path={'inference': launches['fused_stack_head'],
+                               'train': train_launches['fused_stack_head']},
+             per='request (n = 128^3)',
              max_abs_err=head['max_abs_err'], ms=head['ms'],
              plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
              bound_by=head['bound_by'], library_ms=head['library_ms']),
     ]
     report = dict(card=card_line, kind=kind, kernels=kernels,
-                  conv_per_shape=conv['per_shape'], head=head,
+                  conv_inference=conv, conv_train=conv_train, dk=dk,
+                  conv_gradients_on_card=grads_on_card, head=head,
                   requests=requests, peak_device_gb=peak_gb,
-                  small_input_err=ref_err,
+                  small_input_err=ref_err, train_steps=steps,
+                  train_launches=train_launches, gradient_check=gcheck,
                   total_s=time.perf_counter() - t_start)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

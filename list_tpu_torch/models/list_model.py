@@ -1,13 +1,22 @@
-"""The stage-2 LIST model, eval path
-(counterpart of ``list_tpu/models/list_model.py``).
+"""The stage-2 LIST model (counterpart of ``list_tpu/models/list_model.py``).
 
 ``encode`` runs everything query-independent once per image and returns
 the JAX package's layout: ``pc`` (B, 4096, 3), ``trans_mat`` (B, 4, 3),
 ``occ_in`` (B, R, R, R), channels-last ``feat_l2`` (B, H, W, C) maps and
 ``vox_feat`` (B, R_s, R_s, R_s, C_s) volumes, and ``occ_pred``.
 ``decode_sdf`` is the general gather decoder (the chunked fallback of the
-executor).  The train branch (chunked, rematerialized decode) is not part
-of this port yet.
+executor, and the train path's decoder).
+
+In training mode (``model.train()``), ``encode`` takes the voxel
+encoder's train path (features rounded to ``vox_packed_dtype``, bfloat16
+by default, as the JAX package's fold-pack casts them; ``occ_pred`` from
+before the cast), under
+``checkpoint`` with ``remat``, and ``forward`` splits the query axis into
+``train_query_chunks`` chunks (a zero-padded ragged tail, sliced off), each
+checkpointed when decode remat is on (``remat_decode`` None follows
+``remat``).  The JAX package's layout-only training options (fold-packed,
+corner-collapsed or tap-minor sampling, fused gathers, saved samples,
+sorted queries) compute the same values; the port computes the plain path.
 """
 
 from __future__ import annotations
@@ -18,12 +27,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from list_tpu_torch.models.norm import BatchNorm, checkpoint
 from list_tpu_torch.models.percep import PerceptualPooling
 from list_tpu_torch.models.pointmlp import PointMLP
 from list_tpu_torch.models.resnet import ResEncoder
 from list_tpu_torch.models.treegcn import TreeGraphDecoder
 from list_tpu_torch.models.voxel import VoxelDecoder2, VoxelEncoder2
 from list_tpu_torch.ops.grid import reorder_and_scale_query, voxelize
+from list_tpu_torch.ops.sampling import resize_bilinear_align_corners
 
 DEFAULT_POINT_FEAT = (128, 128, 256, 256, 256, 128, 128, 3)
 DEFAULT_POINT_DEGREE = (2, 2, 2, 2, 2, 2, 64)
@@ -38,9 +49,9 @@ class SpatialTransformer(nn.Module):
     def __init__(self, in_dim: int = 640):
         super().__init__()
         self.fc0 = nn.Linear(in_dim, 128)
-        self.bn0 = nn.BatchNorm1d(128, eps=1e-5, momentum=0.1)
+        self.bn0 = BatchNorm(128)
         self.fc1 = nn.Linear(128, 128)
-        self.bn1 = nn.BatchNorm1d(128, eps=1e-5, momentum=0.1)
+        self.bn1 = BatchNorm(128)
         self.fc2 = nn.Linear(128, 12)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -61,12 +72,18 @@ class LIST(nn.Module):
                  point_feat: Sequence[int] = DEFAULT_POINT_FEAT,
                  point_degree: Sequence[int] = DEFAULT_POINT_DEGREE,
                  im_enc_layers: Sequence[int] = DEFAULT_IM_ENC_LAYERS,
-                 h_dim: int = 256, support: int = 10):
+                 h_dim: int = 256, support: int = 10, remat: bool = False,
+                 remat_decode: Optional[bool] = None,
+                 train_query_chunks: int = 4,
+                 vox_packed_dtype: Optional[str] = 'bfloat16'):
         super().__init__()
         self.vox_res, self.bb_min, self.bb_max = vox_res, bb_min, bb_max
+        self.remat, self.remat_decode = remat, remat_decode
+        self.train_query_chunks = train_query_chunks
         self.im_enc_layers = tuple(im_enc_layers)
         self.h_dim = h_dim
-        self.vox_encoder = VoxelEncoder2(tuple(im_enc_layers))
+        self.vox_encoder = VoxelEncoder2(tuple(im_enc_layers),
+                                         vox_packed_dtype)
         n_percep = sum(RESNET_FILTERS)
         in_dim = 7 * sum(vox_channels(im_enc_layers)) + n_percep + 3
         self.sdf_decoder = VoxelDecoder2(in_dim, h_dim)
@@ -80,10 +97,15 @@ class LIST(nn.Module):
 
     @classmethod
     def from_config(cls, config) -> 'LIST':
+        rd = int(getattr(config, 'remat_decode', -1))
         return cls(vox_res=config.vox_res, bb_min=config.bb_min,
                    bb_max=config.bb_max, point_feat=tuple(config.point_feat),
                    point_degree=tuple(config.point_degree),
-                   im_enc_layers=tuple(config.im_enc_layers))
+                   im_enc_layers=tuple(config.im_enc_layers),
+                   remat=bool(getattr(config, 'remat', 0)),
+                   remat_decode=None if rd < 0 else bool(rd),
+                   train_query_chunks=int(
+                       getattr(config, 'train_query_chunks', 4)))
 
     def encode(self, img: torch.Tensor,
                trans_mat: Optional[torch.Tensor] = None) -> Dict[str, Any]:
@@ -98,10 +120,16 @@ class LIST(nn.Module):
             trans_mat = self.spatial_transformer(feat_coarse_im)
         occ = voxelize(pc, self.bb_min, self.bb_max, self.vox_res,
                        dtype=img.dtype)
-        vox_feat = self.vox_encoder(occ)
+        if not self.training:
+            vox_feat = self.vox_encoder(occ)
+            occ_pred = vox_feat[0][..., 0]
+        elif self.remat and torch.is_grad_enabled():
+            vox_feat, occ_pred = checkpoint(self.vox_encoder, occ, True)
+        else:
+            vox_feat, occ_pred = self.vox_encoder(occ, True)
         return {'pc': pc, 'trans_mat': trans_mat, 'occ_in': occ,
                 'feat_l2': feat_l2, 'vox_feat': vox_feat,
-                'occ_pred': vox_feat[0][..., 0]}
+                'occ_pred': occ_pred}
 
     def decode_sdf(self, query: torch.Tensor,
                    enc: Dict[str, Any]) -> torch.Tensor:
@@ -112,9 +140,25 @@ class LIST(nn.Module):
 
     def forward(self, img: torch.Tensor, query: torch.Tensor,
                 trans_mat: Optional[torch.Tensor] = None):
-        """Eval forward: (occ_pred (B, R, R, R), sdf (B, N))."""
-        if self.training:
-            raise NotImplementedError(
-                'list_tpu_torch: the LIST train branch is not ported yet')
+        """(occ_pred (B, R, R, R), sdf (B, N)); query (B, N, 3) world
+        coordinates."""
         enc = self.encode(img, trans_mat)
-        return enc['occ_pred'], self.decode_sdf(query, enc)
+        k = self.train_query_chunks
+        if not (self.training and k > 1 and query.shape[1] > k):
+            return enc['occ_pred'], self.decode_sdf(query, enc)
+        # resize the pyramid once, so that recomputed chunks skip it
+        ms = self.percep_pooling.map_size
+        enc = dict(enc, feat_l2=[resize_bilinear_align_corners(f, ms, ms)
+                                 for f in enc['feat_l2']])
+        B, N = query.shape[:2]
+        nc = -(-N // k)
+        if nc * k != N:
+            query = torch.cat([query, query.new_zeros(B, nc * k - N, 3)], 1)
+        remat = self.remat if self.remat_decode is None else self.remat_decode
+        remat = remat and torch.is_grad_enabled()
+        sdf = []
+        for c in range(k):
+            qc = query[:, c * nc:(c + 1) * nc]
+            sdf.append(checkpoint(self.decode_sdf, qc, enc) if remat
+                       else self.decode_sdf(qc, enc))
+        return enc['occ_pred'], torch.cat(sdf, 1)[:, :N]

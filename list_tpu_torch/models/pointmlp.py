@@ -8,6 +8,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from list_tpu_torch.models.norm import BatchNorm
+
 
 class PointMLP(nn.Module):
     def __init__(self, features=(64, 256, 512), in_dim: int = 3):
@@ -19,7 +21,7 @@ class PointMLP(nn.Module):
             nn.init.zeros_(lin.bias)
             setattr(self, f'block{i + 1}_conv', lin)
             setattr(self, f'block{i + 1}_bn',
-                    nn.BatchNorm1d(f, eps=1e-5, momentum=0.1))
+                    BatchNorm(f))
             in_dim = f
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

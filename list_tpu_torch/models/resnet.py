@@ -15,9 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-def _bn2d(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+from list_tpu_torch.models.norm import BatchNorm
 
 
 class BasicBlock(nn.Module):
@@ -26,14 +24,14 @@ class BasicBlock(nn.Module):
     def __init__(self, in_ch: int, filters: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(in_ch, filters, 3, stride, 1, bias=False)
-        self.bn1 = _bn2d(filters)
+        self.bn1 = BatchNorm(filters)
         self.conv2 = nn.Conv2d(filters, filters, 3, 1, 1, bias=False)
-        self.bn2 = _bn2d(filters)
+        self.bn2 = BatchNorm(filters)
         self.has_down = stride != 1 or in_ch != filters
         if self.has_down:
             self.downsample_conv = nn.Conv2d(in_ch, filters, 1, stride,
                                              bias=False)
-            self.downsample_bn = _bn2d(filters)
+            self.downsample_bn = BatchNorm(filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
@@ -49,7 +47,7 @@ class ResEncoder(nn.Module):
         super().__init__()
         f = tuple(filters)
         self.conv1 = nn.Conv2d(3, f[0], 7, 1, 3, bias=False)
-        self.bn1 = _bn2d(f[0])
+        self.bn1 = BatchNorm(f[0])
         in_ch = f[0]
         for li, stride in zip(range(1, 5), (1, 2, 2, 2)):
             setattr(self, f'layer{li}_0', BasicBlock(in_ch, f[li], stride))

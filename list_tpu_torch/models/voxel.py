@@ -1,5 +1,5 @@
 """3D voxel encoder and SDF decoder head
-(counterpart of ``list_tpu/models/voxel.py``, eval/unpacked paths).
+(counterpart of ``list_tpu/models/voxel.py``).
 
 VoxelEncoder2, layer spec [1,1,1,1,16,32,64,128,128]:
 - l<2:  conv3x3x3 + ReLU + BN
@@ -8,9 +8,16 @@ VoxelEncoder2, layer spec [1,1,1,1,16,32,64,128,128]:
 
 Runs NCDHW.  The full-resolution stage (every conv before the first
 maxpool: five per image at the default spec) goes through the K2 kernel
-wrapper ``conv3x3x3`` at any resolution; the coarser stages use
-``F.conv3d``, as the JAX package leaves them to XLA.  Features are returned
-channels-last (B, D, H, W, C), the JAX layout.
+wrapper ``conv3x3x3`` at any resolution (its backward through K2 and
+K3); the coarser stages use ``F.conv3d``, as the JAX package leaves them to
+XLA.  Features are returned channels-last (B, D, H, W, C), the JAX layout.
+
+The train path (``packed=True``) also returns the occupancy prediction,
+taken from the sigmoid before any cast, and rounds every feature to
+``packed_dtype`` (bfloat16 by default, None keeps the compute dtype) and
+back: the value the JAX package's fold-packed training sampler reads
+(``vox_packed_dtype``).  The fold layout itself is a TPU device and is not
+ported; the plain ``grid_sample_3d`` samples the rounded features.
 
 VoxelDecoder2: 7 displaced trilinear samples (border, align corners) of
 every scale + perceptual features + xyz -> 3610 -> 2h -> h -> h -> 1.
@@ -18,13 +25,14 @@ every scale + perceptual features + xyz -> 3610 -> 2h -> h -> h -> 1.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from list_tpu_torch.models.norm import BatchNorm
 from list_tpu_torch.ops.cuda.stencil3d import conv3x3x3
 from list_tpu_torch.ops.sampling import grid_sample_3d
 
@@ -43,25 +51,25 @@ class _Conv3(nn.Conv3d):
         return F.conv3d(x, self.weight, self.bias, padding=1)
 
 
-def _bn3d(c: int) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(c, eps=1e-5, momentum=0.1)
-
-
 class VoxelEncoder2(nn.Module):
     def __init__(self, layers: Sequence[int] = (1, 1, 1, 1, 16, 32, 64, 128,
-                                                128)):
+                                                128),
+                 packed_dtype: Optional[str] = 'bfloat16'):
         super().__init__()
         self.layers = L = tuple(layers)
+        self.packed_dtype = packed_dtype
         for l in range(len(L) - 1):
             setattr(self, f'conv_{l}', _Conv3(L[l], L[l + 1]))
             if l < 2:
-                setattr(self, f'bn_{l}', _bn3d(L[l + 1]))
+                setattr(self, f'bn_{l}', BatchNorm(L[l + 1]))
             elif l > 2:
                 setattr(self, f'conv_{l}_0', _Conv3(L[l + 1], L[l + 1]))
-                setattr(self, f'bn_{l}', _bn3d(L[l + 1]))
+                setattr(self, f'bn_{l}', BatchNorm(L[l + 1]))
 
-    def forward(self, occ: torch.Tensor) -> List[torch.Tensor]:
-        """occ (B, R, R, R) -> channels-last features per scale."""
+    def forward(self, occ: torch.Tensor, packed: bool = False):
+        """occ (B, R, R, R) -> channels-last features per scale; with
+        ``packed`` (the train path) -> (features rounded to
+        ``packed_dtype`` and back, occupancy prediction (B, R, R, R))."""
         net = occ[:, None]
         full = True  # before the first maxpool
         features = []
@@ -72,6 +80,7 @@ class VoxelEncoder2(nn.Module):
                 net = getattr(self, f'bn_{l}')(F.relu(conv(net, full)))
             elif l == 2:
                 net = torch.sigmoid(conv(net, full))
+                occ_pred = net[:, 0]
                 features.append(net.permute(0, 2, 3, 4, 1))
             else:
                 net = F.relu(conv(net, full))
@@ -80,7 +89,12 @@ class VoxelEncoder2(nn.Module):
                 features.append(net.permute(0, 2, 3, 4, 1))
                 net = F.max_pool3d(net, 2)
                 full = False
-        return features
+        if not packed:
+            return features
+        if self.packed_dtype:
+            pdt = getattr(torch, self.packed_dtype)
+            features = [f.to(pdt).to(f.dtype) for f in features]
+        return features, occ_pred
 
 
 def make_displacements(delta: float = 0.0722) -> np.ndarray:

@@ -1,0 +1,42 @@
+"""Stage-2 training losses (counterpart of ``list_tpu/ops/losses.py``).
+
+- ``sdf_loss``: scaled-SDF L2 summed over query points, averaged over the
+  batch, plus the ``ignore_``-prefixed diagnostics that stay out of the
+  total (``total_loss`` in ``train/executors.py``).
+- ``occupancy_loss``: weighted BCE (w = 0.9, x1000) between the voxel
+  encoder's sigmoid map and the occupancy target, with the log ARGUMENTS
+  clamped below at 1e-8 as the JAX package does: at p == 0 or 1 exactly
+  both the value and the gradient stay finite, and ``torch.maximum``
+  splits the gradient at a tie as ``jnp.maximum`` does.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+def sdf_loss(pred_sdf: torch.Tensor, gt_sdf: torch.Tensor,
+             sdf_scale: float) -> Dict[str, torch.Tensor]:
+    """pred_sdf, gt_sdf: (B, N).  Keys containing 'ignore' are diagnostics."""
+    loss = ((gt_sdf * sdf_scale - pred_sdf) ** 2).sum(-1).mean()
+    realvalue = ((gt_sdf - pred_sdf / sdf_scale) ** 2).mean() * 10000.0
+    accuracy = ((gt_sdf > 0.5) == (pred_sdf > 0.5)).float().mean()
+    return {
+        'sdf_loss': loss,
+        'ignore_sdf_loss_realvalue': realvalue,
+        'ignore_sdf_accuracy': accuracy,
+    }
+
+
+def occupancy_loss(occ_pred: torch.Tensor, occ_gt: torch.Tensor,
+                   w: float = 0.9) -> torch.Tensor:
+    """Weighted BCE x1000 over the full voxel grid."""
+    occ_pred = occ_pred.float()
+    occ_gt = occ_gt.float()
+    floor = occ_pred.new_tensor(1e-8)
+    la = torch.log(torch.maximum(occ_pred + 1e-8, floor))
+    lb = torch.log(torch.maximum(1 - occ_pred + 1e-8, floor))
+    return 1000.0 * (-w * (occ_gt * la).mean()
+                     - (1 - w) * ((1 - occ_gt) * lb).mean())

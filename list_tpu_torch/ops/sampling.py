@@ -108,13 +108,14 @@ def grid_sample_3d(volume: torch.Tensor, grid: torch.Tensor, *,
 
 
 @functools.lru_cache(maxsize=64)
-def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(out_size, in_size) float32 linear-interpolation matrix,
-    align_corners=True."""
+def _resize_matrix(in_size: int, out_size: int,
+                   dtype_name: str = 'float32') -> np.ndarray:
+    """(out_size, in_size) linear-interpolation matrix, align_corners=True,
+    built in float64 and cast to ``dtype_name``."""
     if out_size == 1:
         m = np.zeros((1, in_size))
         m[0, 0] = 1.0
-        return m.astype(np.float32)
+        return m.astype(dtype_name)
     pos = np.arange(out_size) * (in_size - 1) / (out_size - 1)
     i0 = np.clip(np.floor(pos).astype(np.int64), 0, in_size - 1)
     i1 = np.clip(i0 + 1, 0, in_size - 1)
@@ -122,20 +123,22 @@ def _resize_matrix(in_size: int, out_size: int) -> np.ndarray:
     m = np.zeros((out_size, in_size))
     np.add.at(m, (np.arange(out_size), i0), 1.0 - w1)
     np.add.at(m, (np.arange(out_size), i1), w1)
-    return m.astype(np.float32)
+    return m.astype(dtype_name)
 
 
 def resize_bilinear_align_corners(image: torch.Tensor, out_h: int,
                                   out_w: int) -> torch.Tensor:
     """``F.interpolate(mode='bilinear', align_corners=True)`` on (B, H, W, C)
     as two interpolation-matrix products in full f32 (TF32 is off, see
-    ``device.py``)."""
+    ``device.py``); the matrices are rounded to the image's dtype (f32 for
+    bf16 images), as the JAX package rounds them."""
     B, H, W, C = image.shape
     if H == out_h and W == out_w:
         return image
-    mh = torch.as_tensor(_resize_matrix(H, out_h), device=image.device,
+    dt = 'float64' if image.dtype == torch.float64 else 'float32'
+    mh = torch.as_tensor(_resize_matrix(H, out_h, dt), device=image.device,
                          dtype=image.dtype)
-    mw = torch.as_tensor(_resize_matrix(W, out_w), device=image.device,
+    mw = torch.as_tensor(_resize_matrix(W, out_w, dt), device=image.device,
                          dtype=image.dtype)
     out = torch.einsum('oh,bhwc->bowc', mh, image)
     return torch.einsum('pw,bowc->bopc', mw, out)

@@ -1,3 +1,4 @@
-"""Executors of the port (predict side)."""
+"""Executors and optimizer of the port."""
 
-from list_tpu_torch.train.executors import LISTExecutor  # noqa: F401
+from list_tpu_torch.train.executors import LISTExecutor, total_loss  # noqa: F401
+from list_tpu_torch.train.state import make_optimizer  # noqa: F401

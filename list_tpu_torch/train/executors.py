@@ -1,18 +1,24 @@
-"""Stage-2 executor, predict side
-(counterpart of ``list_tpu/train/executors.py::LISTExecutor``).
+"""Stage-2 executor (counterpart of
+``list_tpu/train/executors.py::LISTExecutor``).
 
 ``LISTExecutor(config, model, device=None)`` owns the model on its device
 (``cuda`` unless the caller passes ``device='cpu'``) in eval mode.
-``predict_grid`` runs encode + dense-grid decode + the ``sdf_scale``
-divide + the ``--fetch_dtype`` cast on the device and returns the (R, R, R)
-f32 host grid; ``test`` adds marching cubes and, with ``eval_pred``, the
-mesh metrics.  The training side is not ported yet.
+
+- ``predict_grid`` runs encode + dense-grid decode + the ``sdf_scale``
+  divide + the ``--fetch_dtype`` cast on the device and returns the
+  (R, R, R) f32 host grid; ``test`` adds marching cubes and, with
+  ``eval_pred``, the mesh metrics.
+- ``train(batch)`` runs one optimizer step (forward in train mode, the
+  occupancy and SDF losses, backward, Adam) on a host batch dict and
+  returns ``(None, losses)``; ``train_multi(batches)`` runs one step per
+  batch and returns (K,) losses.  The model is in train mode only inside
+  a step.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -21,6 +27,8 @@ from list_tpu_torch.device import resolve_device
 from list_tpu_torch.eval.metrics import eval_mesh
 from list_tpu_torch.ops.dense_grid import dense_grid_sdf
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
+from list_tpu_torch.ops.losses import occupancy_loss, sdf_loss
+from list_tpu_torch.train.state import make_optimizer
 from list_tpu_torch.utils.meshing import generate_mesh
 
 # Device bytes per grid query held by one slab of the dense decode
@@ -28,6 +36,15 @@ from list_tpu_torch.utils.meshing import generate_mesh
 # term, in bf16 compute): a deliberately generous estimate used only to
 # pick a slab above R = 128.
 BYTES_PER_QUERY = 16384
+
+
+def total_loss(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Sum of all entries whose key does not contain 'ignore'."""
+    total = 0.0
+    for k, v in loss_dict.items():
+        if 'ignore' not in k:
+            total = total + v
+    return total
 
 
 class LISTExecutor:
@@ -44,6 +61,8 @@ class LISTExecutor:
         self.vox_res = config.vox_res
         self.eval_fn = eval_mesh
         self.timings: Dict[str, float] = {}
+        self.optimizer: Optional[torch.optim.Adam] = None
+        self.step = 0
 
     def _sync(self) -> None:
         if self.device.type == 'cuda':
@@ -81,6 +100,7 @@ class LISTExecutor:
                 f"list_tpu_torch: fetch_mode '{fetch_mode}' is not ported "
                 "yet; pass fetch_mode='grid'")
         wire = torch.bfloat16 if fetch_dtype == 'bfloat16' else torch.float32
+        self.model.eval()
         img = torch.as_tensor(np.asarray(rgb_image), dtype=torch.float32,
                               device=self.device)
         tm = (None if trans_mat is None else torch.as_tensor(
@@ -116,6 +136,68 @@ class LISTExecutor:
         vals = [self.model.decode_sdf(pts[:, s:s + self.test_pointnum], enc)
                 for s in range(0, pts.shape[1], self.test_pointnum)]
         return torch.cat(vals, dim=1).reshape((self.vox_res,) * 3)
+
+    # -- training ------------------------------------------------------------
+    def init_optimizer(self, frozen_prefixes: Sequence[str] = ()
+                       ) -> torch.optim.Adam:
+        c = self.config
+        self.optimizer = make_optimizer(
+            self.model.named_parameters(), c.lr, c.beta1,
+            weight_decay=c.weight_decay, frozen_prefixes=frozen_prefixes)
+        return self.optimizer
+
+    def calc_loss(self, pred, gt) -> Dict[str, torch.Tensor]:
+        occ_pred, sdf_pred = pred
+        occ_gt, sdf_gt = gt
+        losses = {'occ_loss': occupancy_loss(occ_pred, occ_gt)}
+        losses.update(sdf_loss(sdf_pred, sdf_gt, self.sdf_scale))
+        return losses
+
+    def _train_keys(self, batch):
+        keep = {k: batch[k] for k in ('rgb_image', 'points', 'values', 'occ')}
+        if 'transmat' in batch:
+            keep['transmat'] = batch['transmat']
+        # exactly-binary occupancy rides host -> device as uint8 (4x fewer
+        # bytes); the step casts it back to f32, bit-exact for 0/1
+        # targets.  Soft occupancies pass through.
+        occ = keep.get('occ')
+        if isinstance(occ, np.ndarray) and occ.dtype == np.float32 \
+                and ((occ == 0) | (occ == 1)).all():
+            keep['occ'] = occ.astype(np.uint8)
+        return keep
+
+    def train(self, batch, calc_loss: bool = True):
+        """One optimizer step on a host batch dict ('rgb_image', 'points',
+        'values', 'occ', optional 'transmat') -> (None, losses)."""
+        if self.optimizer is None:
+            self.init_optimizer()
+        keep = self._train_keys(batch)
+        t0 = time.perf_counter()
+        dev = {k: torch.as_tensor(np.asarray(v), device=self.device)
+               for k, v in keep.items()}
+        occ_gt = dev['occ']
+        if occ_gt.dtype != torch.float32:  # uint8 wire
+            occ_gt = occ_gt.float()
+        self.model.train()
+        try:
+            self.optimizer.zero_grad(set_to_none=True)
+            pred = self.model(dev['rgb_image'], dev['points'],
+                              dev.get('transmat'))
+            losses = self.calc_loss(pred, (occ_gt, dev['values']))
+            total_loss(losses).backward()
+            self.optimizer.step()
+        finally:
+            self.model.eval()
+        self.step += 1
+        self._sync()
+        self.timings['step_s'] = time.perf_counter() - t0
+        return None, {k: v.detach() for k, v in losses.items()}
+
+    def train_multi(self, batches):
+        """One step per batch, in order -> (None, {key: (K,) losses})."""
+        steps = [self.train(b)[1] for b in batches]
+        return None, {k: torch.stack([s[k] for s in steps])
+                      for k in steps[0]}
 
     def test(self, batch, eval_pred: bool = False):
         img = batch['rgb_image']

@@ -38,6 +38,56 @@ def test_conv3x3x3_kernel_matches_plain(cuda, ci, co, dhw):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize('ci,co,dhw', [(1, 1, (5, 7, 33)),
+                                       (1, 16, (4, 9, 40)),
+                                       (16, 16, (3, 8, 128)),
+                                       (16, 1, (3, 5, 9)),
+                                       (3, 5, (4, 8, 17))])
+def test_conv3x3x3_dk_kernel_matches_plain(cuda, ci, co, dhw):
+    """K3 against conv3x3x3_dk_plain: f32 FMAs on both sides, sums of
+    B*D*H*W products in another order: |K3 - plain| <= 1e-4 * max|plain|.
+    Its reduction is deterministic: two runs give bit-identical dk."""
+    g_ = torch.Generator(device='cpu').manual_seed(ci * 13 + co)
+    x = torch.rand(2, ci, *dhw, generator=g_).to(cuda)
+    g = torch.randn(2, co, *dhw, generator=g_).to(cuda)
+    before = stencil3d.dk_launches
+    got = stencil3d.conv3x3x3_dk(x, g)
+    torch.cuda.synchronize()
+    assert stencil3d.dk_launches == before + 1
+    ref = stencil3d.conv3x3x3_dk_plain(x, g)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(stencil3d.conv3x3x3_dk(x, g), got)
+
+
+@pytest.mark.parametrize('ci,co', [(16, 16), (1, 16), (16, 1)])
+def test_conv3x3x3_gradients_on_the_card(cuda, ci, co):
+    """Conv3x3x3Fn on CUDA tensors carries a grad_fn; its dx (K2 on
+    flipped, transposed weights) and dk (K3) agree with autograd through
+    the plain version within 1e-4 * max|plain|, and the backward launches
+    one K2 (dx) and one K3."""
+    g_ = torch.Generator(device='cpu').manual_seed(ci + 7 * co)
+    x0 = torch.randn(2, ci, 4, 8, 33, generator=g_)
+    w0 = torch.randn(co, ci, 3, 3, 3, generator=g_) * 0.2
+    r = torch.randn(2, co, 4, 8, 33, generator=g_).to(cuda)
+    x = x0.to(cuda).requires_grad_()
+    w = w0.to(cuda).requires_grad_()
+    before = (stencil3d.launches, stencil3d.dx_launches,
+              stencil3d.dk_launches)
+    y = stencil3d.conv3x3x3(x, w)
+    assert y.grad_fn is not None
+    (y * r).sum().backward()
+    torch.cuda.synchronize()
+    assert (stencil3d.launches, stencil3d.dx_launches,
+            stencil3d.dk_launches) == (before[0] + 2, before[1] + 1,
+                                       before[2] + 1)
+    xp = x0.to(cuda).requires_grad_()
+    wp = w0.to(cuda).requires_grad_()
+    (stencil3d.conv3x3x3_plain(xp, wp) * r).sum().backward()
+    for got, ref in ((x.grad, xp.grad), (w.grad, wp.grad)):
+        assert float((got - ref).abs().max()) <= \
+            1e-4 * float(ref.abs().max())
+
+
 def _head_args(n, coarse, dev, seed=0):
     rng = np.random.RandomState(seed)
     Ks = (85, 17, 17, 160, 32, 32, 320, 64, 64)
@@ -79,6 +129,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         stencil3d.conv3x3x3(x, torch.zeros(1, 1, 3, 3, 3, device=cuda,
                                            dtype=torch.float64))
+    with pytest.raises(TypeError):
+        stencil3d.conv3x3x3_dk(x, x)
     args = list(_head_args(64, None, cuda))
     args[0] = [p.float() for p in args[0]]
     with pytest.raises(ValueError):

@@ -27,6 +27,8 @@ def test_port_and_chip_smoke_import_no_jax():
         'import list_tpu_torch.ops.cuda.fused_fc0\n'
         'import list_tpu_torch.ops.cuda.build, list_tpu_torch.native\n'
         'import list_tpu_torch.eval, list_tpu_torch.utils\n'
+        'import list_tpu_torch.data, list_tpu_torch.ops.losses\n'
+        'import list_tpu_torch.train.state, list_tpu_torch.models.norm\n'
         'src = open("chip_smoke.py").read()\n'
         'for node in ast.walk(ast.parse(src)):\n'
         '    if isinstance(node, ast.Import):\n'
