@@ -201,5 +201,3 @@ def bound_ms(x_shape, co: int, mem_gbs: float = 3350.0,
     t_f = flops / (f32_tflops * 1e12) * 1e3
     return (t_b, 'bytes') if t_b >= t_f else (t_f, 'operations')
 
-
-dk_bound_ms = bound_ms

@@ -168,16 +168,18 @@ class LISTExecutor:
 
     def train(self, batch, calc_loss: bool = True):
         """One optimizer step on a host batch dict ('rgb_image', 'points',
-        'values', 'occ', optional 'transmat') -> (None, losses)."""
+        'values', 'occ', optional 'transmat') -> (None, losses).  The
+        floating-point inputs take the parameters' dtype; the occupancy
+        target is f32, as the occupancy loss computes in f32."""
         if self.optimizer is None:
             self.init_optimizer()
         keep = self._train_keys(batch)
         t0 = time.perf_counter()
+        dtype = next(self.model.parameters()).dtype
         dev = {k: torch.as_tensor(np.asarray(v), device=self.device)
                for k, v in keep.items()}
-        occ_gt = dev['occ']
-        if occ_gt.dtype != torch.float32:  # uint8 wire
-            occ_gt = occ_gt.float()
+        occ_gt = dev.pop('occ').float()  # uint8 wire or soft f32
+        dev = {k: v.to(dtype) for k, v in dev.items()}
         self.model.train()
         try:
             self.optimizer.zero_grad(set_to_none=True)

@@ -271,21 +271,10 @@ def _jax_step(jex, jm, variables, batch, dtype):
                                 'batch_stats': np_(state.batch_stats)}))
 
 
-def _port_step(tex, batch, dtype):
-    """The port executor's step in ``dtype`` (train() itself in f32)."""
-    if dtype == torch.float32:
-        _, losses = tex.train(batch)
-    else:
-        m = tex.model
-        keep = tex._train_keys(batch)
-        t = {k: torch.as_tensor(np.asarray(v)) for k, v in keep.items()}
-        tex.init_optimizer()
-        m.train()
-        pred = m(t['rgb_image'].to(dtype), t['points'].to(dtype))
-        losses = tex.calc_loss(pred, (t['occ'].float(), t['values'].to(dtype)))
-        total_loss(losses).backward()
-        tex.optimizer.step()
-        m.eval()
+def _port_step(tex, batch):
+    """The port executor's step (``LISTExecutor.train``) in the dtype of
+    its model's parameters."""
+    _, losses = tex.train(batch)
     grads = {k: None if p.grad is None else p.grad.numpy()
              for k, p in tex.model.named_parameters()}
     return ({k: float(v) for k, v in losses.items()}, grads,
@@ -309,7 +298,7 @@ def step64(setup):
               vox_packed_dtype=None)
     load_flax_variables(tm, variables)
     tex = LISTExecutor(cfg, tm.double(), device='cpu')
-    return ref, _port_step(tex, batch, torch.float64)
+    return ref, _port_step(tex, batch)
 
 
 @pytest.fixture(scope='module')
@@ -321,7 +310,7 @@ def step32(setup):
     tm = LIST(**TINY, remat=True, train_query_chunks=2)
     load_flax_variables(tm, variables)
     tex = LISTExecutor(cfg, tm, device='cpu')
-    return ref, _port_step(tex, batch, torch.float32), tex
+    return ref, _port_step(tex, batch), tex
 
 
 def test_step_f64_losses(step64):
@@ -421,21 +410,16 @@ def test_executor_train_state(step32, setup):
 
 @pytest.fixture(scope='module')
 def port_runs(setup):
-    """One forward + backward in train mode per (remat, chunks), in f64
+    """One ``LISTExecutor.train`` step per (remat, chunks), in f64
     (upstream of the spatial transformer's batch-2 BatchNorm1d an f32
     gradient is too ill-conditioned to compare two summation orders)."""
     cfg, batch, _, variables = setup
-    keep = {k: torch.as_tensor(np.asarray(v)).double()
-            for k, v in batch.items()}
 
     def run(remat, chunks):
         tm = LIST(**TINY, remat=bool(remat), train_query_chunks=chunks)
         load_flax_variables(tm, variables)
         tex = LISTExecutor(cfg, tm.double(), device='cpu')
-        tm.train()
-        pred = tm(keep['rgb_image'], keep['points'])
-        losses = tex.calc_loss(pred, (keep['occ'], keep['values']))
-        total_loss(losses).backward()
+        _, losses = tex.train(batch)
         return ({k: float(v) for k, v in losses.items()},
                 {k: p.grad.clone() for k, p in tm.named_parameters()},
                 {k: v.clone() for k, v in tm.state_dict().items()
