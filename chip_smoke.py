@@ -6,22 +6,32 @@
 Run from the repository root.  Phases (any failure exits non-zero):
 
 1. Read the card: name and power limit from nvidia-smi.
-2. Build every CUDA kernel of both paths from ``list_tpu_torch/csrc`` (one
+2. Build every CUDA kernel of the paths from ``list_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and the native mesh library.
 3. Kernel phase: each kernel against its plain PyTorch version on the card
    at its paths' shapes, with CUDA-event median times of the kernel, the
    plain version and one PyTorch library call computing the same function
    (timed here only; the port never calls it): K2 at the inference shapes
    (batch 1) and the train step's forward and dx shapes (batch 8), K3 at
-   the train step's shapes, K1 at the dense decode's; and the
+   the train step's shapes, K1 and K4 at the dense decode's; and the
    differentiable conv3x3x3's dx and dk against autograd through the plain
    version.
 4. Inference path: the full-width default LIST (vox_res 128) with seeded
    random weights serves ``--requests`` seeded 224x224 images through
    ``LISTExecutor.test(..., eval_pred=True)`` (dense 128^3 SDF -> marching
    cubes -> metrics against a sphere).  A small input (vox_res 32) is
-   checked against the CPU plain path.
-5. Train path: the full-width LIST (vox_res 128, batch 8 x 32,768 queries,
+   checked against the CPU plain path, under the default head and under
+   ``--use_pallas 1`` (K4).
+5. Sweep path: ``test_all`` (the test-split sweep) over the port's
+   synthetic dataset (8 shapes, 224x224 renders) at the same full width
+   and 128^3, from a torch-format checkpoint of seeded weights, with the
+   default band fetch and bf16 wire and ``--eval_pred``: first under
+   ``--use_pallas 1`` (the K4 head, 2 launches per mesh), then, after
+   deleting 4 of the 8 cached meshes, under the default head (K1) with
+   ``--infer_batch 2``; launch counts, the CSV and its metrics asserted
+   per sweep.  Before it, the band fetch and the grid fetch of one image
+   give identical meshes on the card.
+6. Train path: the full-width LIST (vox_res 128, batch 8 x 32,768 queries,
    remat, 4 query chunks) with seeded random weights takes 1 warm and
    3 timed ``LISTExecutor.train`` steps on batches of the synthetic
    dataset; losses, step_s and peak device memory per step, and the
@@ -29,8 +39,9 @@ Run from the repository root.  Phases (any failure exits non-zero):
    1,024 queries, full widths) checks one ``LISTExecutor.train`` step's
    losses, every gradient, the updated BatchNorm statistics and the Adam
    update against the CPU plain path.
-6. Prints one JSON line of kernel numbers (K2 once per path: per request
-   at batch 1, and per train step at batch 8), then the device line.
+7. Prints one JSON line of kernel numbers (K2 once per path: per request
+   at batch 1, and per train step at batch 8; K4 per mesh of the sweep),
+   then the device line.
 
 Every kernel's launch counter is set to 0 just before each path and read
 just after it.
@@ -40,8 +51,10 @@ just after it.
 
 import argparse
 import copy
+import csv
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -204,76 +217,128 @@ def grad_fn_phase(dev, stencil3d, batch=2):
     return rows
 
 
-def head_phase(dev, fused_fc0, n: int):
-    """K1 at the production dense decode: n = 128^3 queries, nine parts
-    (K = 85,17,17,160,32,32,320,64,64), hoisted bf16 coarse term."""
-    g = torch.Generator(device=dev).manual_seed(12)
-    bf = torch.bfloat16
-    Ks = (85, 17, 17, 160, 32, 32, 320, 64, 64)
-
+def _uniform(g, dev):
+    """Seeded uniform(-scale, scale) tensors on the card."""
     def u(*shape, scale=1.0, dt=torch.float32):
         return ((torch.rand(*shape, generator=g, device=dev) * 2 - 1)
                 * scale).to(dt)
+    return u
 
+
+def _head_tail(u, bf):
+    """fc_0's xyz rows and bias and the fc_1..fc_out tail (JAX layout)."""
+    wxyz, b1 = u(3, 512, scale=1 / np.sqrt(3610)), u(512, scale=0.02)
+    w2, b2 = u(512, 256, scale=1 / np.sqrt(512), dt=bf), u(256, scale=0.04)
+    w3, b3 = u(256, 256, scale=1 / 16, dt=bf), u(256, scale=0.06)
+    w4, b4 = u(256, 1, scale=1 / 16, dt=bf), u(1, scale=0.06)
+    return wxyz, b1, w2, b2, w3, b3, w4, b4
+
+
+def _library_head(a, w1cat, adds, q, tail):
+    """The unfused bf16 torch.matmul chain of a fused head."""
+    bf = torch.bfloat16
+    wxyz, b1, w2, b2, w3, b3, w4, b4 = tail
+    h = a @ w1cat
+    for t in adds:
+        h = h + t
+    h = h + q.to(bf) @ wxyz.to(bf) + b1.to(bf)
+    h = F.relu(F.relu(h) @ w2 + b2.to(bf))
+    h = F.relu(h @ w3 + b3.to(bf))
+    return h @ w4 + b4.to(bf)
+
+
+def _head_row(name, kernel, plain, library, args, shape, bound):
+    """A fused head against its plain version (|kernel - plain| <=
+    1e-2 + 1e-2 |plain|) and timed beside it and the library chain."""
+    y = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    err = float((y - ref).abs().max())
+    tol_ok = bool(((y - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all())
+    ok = bool(torch.isfinite(y).all()) and tol_ok
+    row = dict(shape=shape, max_abs_err=err, tol='1e-2 + 1e-2*|plain|',
+               ok=ok, max_abs_plain=float(ref.abs().max()),
+               ms=time_ms(lambda: kernel(*args), 10),
+               plain_ms=time_ms(lambda: plain(*args), 3, 1),
+               library_ms=time_ms(library, 10), bound_ms=bound[0],
+               bound_by=bound[1])
+    print(f'kernel {name}', json.dumps(row), flush=True)
+    if not ok:
+        fail(f'{name} disagrees with its plain version')
+    return row
+
+
+def head_phase(dev, fused_fc0, n: int):
+    """K1 at the production dense decode: n = 128^3 queries, nine parts
+    (K = 85,17,17,160,32,32,320,64,64), hoisted bf16 coarse term."""
+    u = _uniform(torch.Generator(device=dev).manual_seed(12), dev)
+    bf = torch.bfloat16
+    Ks = (85, 17, 17, 160, 32, 32, 320, 64, 64)
     parts = [u(n, K, dt=bf).abs() for K in Ks]
     w1 = [u(K, 512, scale=1 / np.sqrt(3610), dt=bf) for K in Ks]
     coarse = u(n, 512, scale=0.5, dt=bf)
     percep = u(n, 512, scale=0.5, dt=bf)
     q = u(n, 3)
-    wxyz, b1 = u(3, 512, scale=1 / np.sqrt(3610)), u(512, scale=0.02)
-    w2, b2 = u(512, 256, scale=1 / np.sqrt(512), dt=bf), u(256, scale=0.04)
-    w3, b3 = u(256, 256, scale=1 / 16, dt=bf), u(256, scale=0.06)
-    w4, b4 = u(256, 1, scale=1 / 16, dt=bf), u(1, scale=0.06)
-    args = (parts, coarse, percep, q, w1, wxyz, b1, w2, b2, w3, b3, w4, b4)
-    y = fused_fc0.fused_stack_head(*args)
-    torch.cuda.synchronize()
-    ref = fused_fc0.fused_stack_head_plain(*args)
-    err = float((y - ref).abs().max())
-    tol_ok = bool(((y - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all())
-    ok = bool(torch.isfinite(y).all()) and tol_ok
+    tail = _head_tail(u, bf)
+    stack, w1cat = torch.cat(parts, 1), torch.cat(w1, 0)
+    return _head_row(
+        'fused_stack_head', fused_fc0.fused_stack_head,
+        fused_fc0.fused_stack_head_plain,
+        lambda: _library_head(stack, w1cat, (coarse, percep), q, tail),
+        (parts, coarse, percep, q, w1) + tail,
+        f'n={n} K={list(Ks)} coarse=bf16',
+        fused_fc0.bound_ms(n, Ks, coarse_bytes=2, q_cols=3))
 
-    stack = torch.cat(parts, 1)
+
+MLP_CHANNELS = (1, 16, 32, 64)  # the kept scales of the default LIST
+
+
+def mlp_phase(dev, fused_fc0, n: int):
+    """K4 at the ``--use_pallas 1`` dense decode: n = 64 x 128^2 queries
+    (one slab of 128^3), t-major (7, n, C) tap stacks of channels
+    (1, 16, 32, 64), the coarse term already in percep; per launch.  The
+    library chain takes the stacks as one (n, 791) operand."""
+    u = _uniform(torch.Generator(device=dev).manual_seed(15), dev)
+    bf = torch.bfloat16
+    stacks = [u(7, n, c, dt=bf).abs() for c in MLP_CHANNELS]
+    w1 = [u(7 * c, 512, scale=1 / np.sqrt(3610), dt=bf)
+          for c in MLP_CHANNELS]
+    percep = u(n, 512, scale=0.5, dt=bf)
+    q = u(n, 3)
+    tail = _head_tail(u, bf)
     w1cat = torch.cat(w1, 0)
-    wxyz_b, b1_b = wxyz.to(bf), b1.to(bf)
-    w3b, w4b = w3, w4
 
     def library():
-        h = stack @ w1cat + coarse + percep + q.to(bf) @ wxyz_b + b1_b
-        h = F.relu(F.relu(h) @ w2 + b2.to(bf))
-        h = F.relu(h @ w3b + b3.to(bf))
-        return h @ w4b + b4.to(bf)
+        a = torch.cat([s.permute(1, 0, 2).reshape(n, -1) for s in stacks], 1)
+        return _library_head(a, w1cat, (percep,), q, tail)
 
-    b_ms, b_by = fused_fc0.bound_ms(n, Ks, coarse_bytes=2, q_cols=3)
-    row = dict(shape=f'n={n} K={list(Ks)} coarse=bf16', max_abs_err=err,
-               tol='1e-2 + 1e-2*|plain|', ok=ok,
-               max_abs_plain=float(ref.abs().max()),
-               ms=time_ms(lambda: fused_fc0.fused_stack_head(*args), 10),
-               plain_ms=time_ms(
-                   lambda: fused_fc0.fused_stack_head_plain(*args), 3, 1),
-               library_ms=time_ms(library, 10), bound_ms=b_ms, bound_by=b_by)
-    print('kernel fused_stack_head', json.dumps(row), flush=True)
-    if not ok:
-        fail('fused_stack_head disagrees with its plain version')
-    return row
+    return _head_row(
+        'fused_fc0_mlp', fused_fc0.fused_fc0_mlp,
+        fused_fc0.fused_fc0_mlp_plain, library,
+        (stacks, percep, q, w1) + tail,
+        f'n={n} C={list(MLP_CHANNELS)} t-major',
+        fused_fc0.bound_ms(n, [7 * c for c in MLP_CHANNELS], coarse_bytes=0,
+                           q_cols=3))
 
 
 def reset_counts(stencil3d, fused_fc0) -> None:
     stencil3d.launches = stencil3d.dx_launches = stencil3d.dk_launches = 0
-    fused_fc0.launches = 0
+    fused_fc0.launches = fused_fc0.mlp_launches = 0
 
 
 def read_counts(stencil3d, fused_fc0) -> dict:
     return dict(conv3x3x3=stencil3d.launches,
                 conv3x3x3_dx=stencil3d.dx_launches,
                 conv3x3x3_dk=stencil3d.dk_launches,
-                fused_stack_head=fused_fc0.launches)
+                fused_stack_head=fused_fc0.launches,
+                fused_fc0_mlp=fused_fc0.mlp_launches)
 
 
 # K2 per train step: 5 forward + the same 5 recomputed under remat + dx of
 # the four convolutions whose input needs a gradient (not conv_0's: its
 # input is the occupancy grid); K3: one dk per convolution.
 STEP_LAUNCHES = dict(conv3x3x3=14, conv3x3x3_dx=4, conv3x3x3_dk=5,
-                     fused_stack_head=0)
+                     fused_stack_head=0, fused_fc0_mlp=0)
 TRAIN_STEPS = 3  # timed, after one warm step
 
 
@@ -401,6 +466,160 @@ def card_gradient_check(cfg, model, batch, LISTExecutor, device='cuda'):
     return rec
 
 
+SWEEP_SHAPES = 8  # the synthetic test split
+SWEEP_DROPPED = (1, 2, 3, 5)  # cached meshes deleted before the 2nd sweep
+
+
+def sweep_run(cfg, label, stencil3d, fused_fc0):
+    """One ``test_all`` sweep on the card: the whole wall (model build and
+    checkpoint load included), the device phase (from the first device
+    call's start to the CSV) and fresh meshes per second of it, each device
+    call's encode_s/decode_s, peak device memory and the launch counts (set
+    to 0 just before the sweep and read just after); fails unless the CSV
+    holds a row of finite metrics per shape and the mean row."""
+    from list_tpu_torch.infer.pipeline import test_all
+    from list_tpu_torch.train import LISTExecutor
+    calls, starts = [], []
+    real = {k: getattr(LISTExecutor, k)
+            for k in ('predict_grid', 'predict_grid_batch')}
+
+    def timed(k):
+        def call(self, imgs, *a, **kw):
+            starts.append(time.perf_counter())
+            out = real[k](self, imgs, *a, **kw)
+            calls.append(dict(images=len(imgs), **self.timings))
+            return out
+        return call
+
+    for k in real:
+        setattr(LISTExecutor, k, timed(k))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(stencil3d, fused_fc0)
+    t0 = time.perf_counter()
+    try:
+        csv_path = test_all(cfg)
+    finally:
+        for k, f in real.items():
+            setattr(LISTExecutor, k, f)
+    t1 = time.perf_counter()
+    wall = t1 - t0
+    counts = read_counts(stencil3d, fused_fc0)
+    if csv_path is None:
+        fail(f'sweep {label}: no checkpoint loaded or no CSV written')
+    with open(csv_path) as f:
+        header, *rows = list(csv.reader(f))
+    vals = np.asarray([r[2:] for r in rows], np.float64)
+    fresh = sum(c['images'] for c in calls)
+    device_phase = t1 - starts[0] if starts else float('nan')
+    rec = dict(sweep=label, wall_s=wall, device_phase_s=device_phase,
+               fresh_meshes=fresh,
+               fresh_meshes_per_s=fresh / device_phase,
+               device_calls=calls, launches=counts,
+               peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+               csv=os.path.relpath(csv_path, HERE), columns=header[2:],
+               mean_row=dict(zip(header[2:], vals[-1].tolist())))
+    print('sweep', json.dumps(rec), flush=True)
+    if len(rows) != SWEEP_SHAPES + 1 or rows[-1][1] != 'Mean':
+        fail(f'sweep {label}: {len(rows)} CSV rows, expected '
+             f'{SWEEP_SHAPES} and the mean row')
+    if vals.size == 0 or not np.isfinite(vals).all():
+        fail(f'sweep {label}: a metric in the CSV is missing or not finite')
+    return rec
+
+
+def band_check(ex, img):
+    """The band fetch against the grid fetch of one image on the card
+    (bf16 wire): identical marching-cubes vertices and faces."""
+    from list_tpu_torch.ops import band
+    from list_tpu_torch.utils.meshing import generate_mesh
+    full = ex.predict_grid(img, fetch_mode='grid')
+    out = ex.predict_grid(img, fetch_mode='band', device_out=True)
+    buf = band.band_to_numpy(out.band)
+    a = generate_mesh(full, ex.bb_min, ex.bb_max)
+    b = generate_mesh(band.fetch_grid_f32(out), ex.bb_min, ex.bb_max)
+    return dict(count=int(buf[-1]), cap=band.band_cap(full.size),
+                overflow=int(buf[-1]) > band.band_cap(full.size),
+                band_mb=buf.nbytes / 1e6, vertices=len(a[0]),
+                identical=bool(np.array_equal(a[0], b[0])
+                               and np.array_equal(a[1], b[1]))), full
+
+
+def sweep_phase(args, stencil3d, fused_fc0):
+    """The test-split sweep at full width and 128^3 (module docstring,
+    phase 5)."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import LISTExecutor
+    from list_tpu_torch.train.checkpoints import save_checkpoint
+    root = os.path.join(HERE, 'build', 'chip_smoke_sweep')
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(model='network.models.LIST',
+                dataset='datasets.Datasets.Synthetic', vox_res=128,
+                sdf_scale=10.0, eval_pred=True, output_dir=root + '/',
+                exp_name='sweep')
+    cfg = default_config(use_pallas=1, **base)
+
+    # the checkpoint: seeded weights, fc_out's bias set so the first test
+    # image's grid has its median at zero
+    torch.manual_seed(args.seed)
+    model = LIST.from_config(cfg)
+    ex = LISTExecutor(default_config(**base), model)
+    img = SyntheticSDFDataset(cfg, 'test').get_testdata(
+        'synthetic', '0', 0)['rgb_image']
+    shift = float(np.median(ex.predict_grid(img, fetch_mode='grid'))) \
+        * cfg.sdf_scale
+    with torch.no_grad():
+        model.sdf_decoder.fc_out.bias -= shift
+    ckpt = os.path.join(cfg.checkpoint_dir, cfg.test_checkpoint)
+    save_checkpoint(0, model, 0.5, ckpt)
+    print(f'sweep checkpoint {os.path.relpath(ckpt, HERE)}, fc_out bias '
+          f'shifted by {-shift:.6g}', flush=True)
+
+    # the band fetch on the card: the sweep's weights, then weights whose
+    # surface fits the band (3% of the grid negative), which must not
+    # overflow
+    bands = []
+    for q in (None, 0.03):
+        rec, full = band_check(ex, img)
+        if q is not None:
+            rec['negative_quantile'] = q
+        print('band fetch on the card', json.dumps(rec), flush=True)
+        bands.append(rec)
+        if not rec['identical']:
+            fail('the band fetch and the grid fetch give different meshes')
+        if q is None:
+            with torch.no_grad():
+                model.sdf_decoder.fc_out.bias -= float(
+                    np.quantile(full, 0.03)) * cfg.sdf_scale
+    if bands[-1]['overflow']:
+        fail('the band overflowed on a grid that fits it')
+    del ex, model
+    torch.cuda.empty_cache()
+
+    first = sweep_run(cfg, '--use_pallas 1', stencil3d, fused_fc0)
+    want = dict(conv3x3x3=5 * SWEEP_SHAPES, conv3x3x3_dx=0, conv3x3x3_dk=0,
+                fused_stack_head=0, fused_fc0_mlp=2 * SWEEP_SHAPES)
+    if first['launches'] != want or first['fresh_meshes'] != SWEEP_SHAPES:
+        fail(f'sweep --use_pallas 1: launches {first["launches"]} for '
+             f'{first["fresh_meshes"]} fresh meshes, expected {want}')
+
+    out = os.path.dirname(os.path.join(HERE, first['csv']))
+    for i in SWEEP_DROPPED:
+        os.remove(os.path.join(out, 'synthetic', str(i), '00_pred.obj'))
+    cfg2 = default_config(infer_batch=2, **base)
+    second = sweep_run(cfg2, '--use_pallas -1 --infer_batch 2', stencil3d,
+                       fused_fc0)
+    groups = {i // 2 for i in SWEEP_DROPPED}
+    want = dict(conv3x3x3=5 * len(groups), conv3x3x3_dx=0, conv3x3x3_dk=0,
+                fused_stack_head=len(SWEEP_DROPPED), fused_fc0_mlp=0)
+    if second['launches'] != want \
+            or second['fresh_meshes'] != len(SWEEP_DROPPED):
+        fail(f'sweep --infer_batch 2: launches {second["launches"]} for '
+             f'{second["fresh_meshes"]} fresh meshes, expected {want}')
+    return dict(sweeps=[first, second], band=bands)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -420,6 +639,7 @@ def main():
         from list_tpu_torch.models import LIST
         from list_tpu_torch.ops.cuda import (KERNEL_SOURCES, build,
                                              fused_fc0, stencil3d)
+        from list_tpu_torch.ops.dense_grid import dense_grid_sdf
         from list_tpu_torch.train import LISTExecutor
         from list_tpu_torch.utils.meshio import make_icosphere
     except ImportError as e:
@@ -456,6 +676,11 @@ def main():
                                               (16, 16, 1)),
                           'request (5 launches, batch 1, 128^3)')
         head = head_phase(dev, fused_fc0, 128 ** 3)
+        torch.cuda.empty_cache()
+        mlp_row = mlp_phase(dev, fused_fc0, 64 * 128 ** 2)
+        # per mesh: two slabs of 64 x 128^2 queries
+        mlp = _total([dict(mlp_row, calls=2)],
+                     'mesh (2 launches of n = 1,048,576)')
         torch.cuda.empty_cache()
         # a train step: forward 1->1 x3, 1->16, 16->16, twice (remat), and
         # dx 1->1 x2, 16->1, 16->16
@@ -511,7 +736,8 @@ def main():
           f'peak_device_gb {peak_gb:.2f}', flush=True)
     if launches != dict(conv3x3x3=5 * args.requests, conv3x3x3_dx=0,
                         conv3x3x3_dk=0,
-                        fused_stack_head=launches['fused_stack_head']):
+                        fused_stack_head=launches['fused_stack_head'],
+                        fused_fc0_mlp=0):
         fail(f'inference path launches {launches}, expected conv3x3x3 '
              f'{5 * args.requests} and no dx or dk')
     if launches['fused_stack_head'] < args.requests:
@@ -531,7 +757,36 @@ def main():
           f'{ref_err:.3g} tol {ref_tol:.3g}', flush=True)
     if not (np.isfinite(a).all() and ref_err <= ref_tol):
         fail('the card disagrees with the CPU plain path on a small input')
+    # the same under --use_pallas 1: K4 on the card (one slab of 32^3),
+    # fused_fc0_mlp_plain on the CPU (whose executor would pick head 0)
+    before = fused_fc0.mlp_launches
+    a1 = LISTExecutor(default_config(vox_res=32, sdf_scale=10.0,
+                                     fetch_mode='grid', use_pallas=1),
+                      m_gpu).predict_grid(imgs[0], fetch_dtype='float32')
+    k4_small = fused_fc0.mlp_launches - before
+    with torch.inference_mode():
+        enc = cpu_model.eval().encode(torch.as_tensor(imgs[0]))
+        b1 = (dense_grid_sdf(cpu_model.sdf_decoder, enc['vox_feat'],
+                             enc['feat_l2'], enc['trans_mat'], 32, slab=32,
+                             compute_dtype=torch.bfloat16,
+                             bb_min=small.bb_min, bb_max=small.bb_max,
+                             use_pallas=1) / small.sdf_scale).numpy()
+    k4_err = float(np.abs(a1 - b1).max())
+    k4_tol = 2e-3 + 2e-2 * float(np.abs(b1).max())
+    print(f'small input (vox_res 32, --use_pallas 1) card vs CPU plain: '
+          f'max_abs_err {k4_err:.3g} tol {k4_tol:.3g}, K4 launches '
+          f'{k4_small}', flush=True)
+    if k4_small != 1:
+        fail(f'--use_pallas 1 at vox_res 32 launched K4 {k4_small} times, '
+             'expected 1')
+    if not (np.isfinite(a1).all() and k4_err <= k4_tol):
+        fail('the card disagrees with the CPU plain path on a small input '
+             'under --use_pallas 1')
     del ex, model, cpu_model, m_gpu
+    torch.cuda.empty_cache()
+
+    # ---- sweep path: test_all at full width, 128^3 ------------------------
+    sweep = sweep_phase(args, stencil3d, fused_fc0)
     torch.cuda.empty_cache()
 
     # ---- train path: full-width LIST, batch 8 x 32,768 queries, 128^3 -----
@@ -593,12 +848,19 @@ def main():
              max_abs_err=head['max_abs_err'], ms=head['ms'],
              plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
              bound_by=head['bound_by'], library_ms=head['library_ms']),
+        dict(name='fused_fc0_mlp', route='cuda', source=fused_fc0.MLP_SOURCE,
+             replaces=fused_fc0.MLP_REPLACES,
+             launches=sweep['sweeps'][0]['launches']['fused_fc0_mlp'],
+             per=mlp['unit'], max_abs_err=mlp['max_abs_err'], ms=mlp['ms'],
+             plain_ms=mlp['plain_ms'], bound_ms=mlp['bound_ms'],
+             bound_by=mlp['bound_by'], library_ms=mlp['library_ms']),
     ]
     report = dict(card=card_line, kind=kind, kernels=kernels,
                   conv_inference=conv, conv_train=conv_train, dk=dk,
-                  conv_gradients_on_card=grads_on_card, head=head,
+                  conv_gradients_on_card=grads_on_card, head=head, mlp=mlp,
                   requests=requests, peak_device_gb=peak_gb,
-                  small_input_err=ref_err, train_steps=steps,
+                  small_input_err=ref_err, small_input_k4_err=k4_err,
+                  sweep=sweep, train_steps=steps,
                   train_launches=train_launches, gradient_check=gcheck,
                   total_s=time.perf_counter() - t_start)
     if args.report:

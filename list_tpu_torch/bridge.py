@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's ``{'params', 'batch_stats'}`` trees
-(nested dicts of numpy arrays) -> the port's ``state_dict``.
+(nested dicts of numpy arrays, or of torch tensors for a checkpoint's
+bfloat16 leaves) -> the port's ``state_dict``.
 
 The port's submodules carry the flax module names, so a flax path maps to
 a torch key by name; only the leaf names and layouts change:
@@ -36,20 +37,20 @@ def _flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
         if isinstance(v, Mapping):
             out.update(_flatten(v, key))
         else:
-            out[key] = np.asarray(v)
+            out[key] = v if isinstance(v, torch.Tensor) else np.asarray(v)
     return out
 
 
-def _convert_param(leaf: str, a: np.ndarray) -> np.ndarray:
+def _convert_param(leaf: str, a):
+    """Kernel layouts to torch's; ``a`` is a numpy array or (a bfloat16
+    leaf of a checkpoint) a torch tensor."""
     if leaf != 'kernel':
         return a
-    if a.ndim == 2:
-        return a.T
-    if a.ndim == 4:
-        return np.transpose(a, (3, 2, 0, 1))
-    if a.ndim == 5:
-        return np.transpose(a, (4, 3, 0, 1, 2))
-    raise ValueError(f'bridge: unexpected kernel rank {a.ndim}')
+    axes = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}.get(a.ndim)
+    if axes is None:
+        raise ValueError(f'bridge: unexpected kernel rank {a.ndim}')
+    return (a.permute(axes) if isinstance(a, torch.Tensor)
+            else np.transpose(a, axes))
 
 
 def flax_to_state_dict(variables: Mapping) -> Dict[str, np.ndarray]:
@@ -93,6 +94,7 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
         if tuple(a.shape) != tuple(t.shape):
             raise ValueError(f'bridge: {k} has shape {tuple(a.shape)}, '
                              f'model expects {tuple(t.shape)}')
-        new[k] = torch.tensor(np.array(a), dtype=t.dtype)
+        new[k] = (a.to(t.dtype).clone() if isinstance(a, torch.Tensor)
+                  else torch.tensor(np.array(a), dtype=t.dtype))
     model.load_state_dict(new, strict=True)
     return model

@@ -114,13 +114,19 @@ def _build_parser() -> ArgumentParser:
       help='dtype the dense SDF grid is cast to on the device before the '
            'device->host copy (upcast to f32 on the host).')
     a('--fetch_mode', type=str, default='band', choices=['grid', 'band'],
-      help='Device->host wire format of the dense grid; list_tpu_torch '
-           'implements "grid" only so far.')
+      help='Device->host wire format of the dense grid: "band" (default) '
+           'packs the sign bits and the exact values of the cells of mixed '
+           'marching-cubes cubes on the device (~0.77 MB per 128^3 mesh; '
+           'the same mesh as the full grid, which is fetched on overflow); '
+           '"grid" copies the whole --fetch_dtype grid.')
     a('--infer_batch', type=int, default=1,
       help='Meshes decoded per batched encoder pass in a test sweep.')
     a('--use_pallas', type=int, default=-1,
-      help='JAX dense-decode head selector; the port always runs the '
-           'structured fused head (CUDA on the card).')
+      help='Dense-decode head: -1 (default) the structured K1 head on '
+           'the card (one slab at R <= 128, else slabs of the largest '
+           'divisor of R in 64..2); 0 the plain PyTorch head; 1 the '
+           'per-scale t-major K4 head; 2 the structured K1 head.  The CPU '
+           'always takes the plain head.')
     a('--percep_collapse', type=int, default=-1,
       help='Layout-only in the JAX package (identical math); the port '
            'computes the plain 4-corner gather.')

@@ -11,6 +11,7 @@ parallel (one ``nvcc`` process each).
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -46,9 +47,12 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """No library yet, or older than its source or any shared header."""
     src, so = _paths(name)
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(
-        src)
+    if not os.path.exists(so):
+        return True
+    deps = [src] + glob.glob(os.path.join(CSRC, '*.cuh'))
+    return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -15,8 +15,14 @@ so trilinear sampling factorizes per axis with static indices and weights
    hoisted) gives their summed fc_0 term.
 3. Perceptual maps are resized once and projected through the fc_0 percep
    rows before the 4-corner bilinear gather.
-4. The head: ``fused_stack_head`` (the K1 kernel on the card, its plain
-   version on the CPU).
+4. The head, by ``use_pallas`` as in the JAX package: 2 (the default
+   here) ``fused_stack_head`` (K1 on the card, its plain version on the
+   CPU); 0 the JAX package's XLA head, which is ``fused_stack_head_plain``
+   on any device; 1 the per-scale path: no grouping and no hoisted
+   variants, each kept scale's seven taps one batched product giving a
+   t-major (7, n, C) stack, the coarse term folded into the perceptual one
+   and the sum cast to the compute dtype, and ``fused_fc0_mlp`` (K4 on the
+   card) as the head.
 
 The JAX ``lax.scan`` over slabs is a Python loop here.  ``compute_dtype``
 is bf16 in production and f32 in the parity tests; where the JAX package
@@ -31,7 +37,9 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from list_tpu_torch.ops.cuda.fused_fc0 import fused_stack_head
+from list_tpu_torch.ops.cuda.fused_fc0 import (fused_fc0_mlp,
+                                               fused_stack_head,
+                                               fused_stack_head_plain)
 from list_tpu_torch.ops.sampling import resize_bilinear_align_corners
 
 # taps in the reference displacement order d=0..6: (x_shift_sign, (sy, sz))
@@ -64,6 +72,13 @@ def _axis_plan(r_out: int, r_in: int, shift: float,
 def norm_shift(s: float, r_in: int) -> float:
     """Normalized-space displacement -> input-voxel units."""
     return s * (r_in - 1) / 2.0
+
+
+def _scale_w1_rows(channels: Sequence[int], scale_idx: int) -> np.ndarray:
+    """fc_0 rows of one scale in the (disp, channel) stack order."""
+    offset = sum(channels[:scale_idx])
+    return np.asarray([(offset + ch) * 7 + d for d in range(7)
+                       for ch in range(channels[scale_idx])], np.int64)
 
 
 def _tap_w1_rows(channels: Sequence[int], scale_idx: int,
@@ -171,7 +186,8 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
                    bb_min: float = -0.5, bb_max: float = 0.5,
                    coarse_proj: int = 16,
                    coarse_outside: Optional[bool] = None,
-                   hoist_variants: Optional[bool] = None) -> torch.Tensor:
+                   hoist_variants: Optional[bool] = None,
+                   use_pallas: int = 2) -> torch.Tensor:
     """Dense (R^3) SDF for batch size 1 -> (R, R, R) f32 raw SDF.
 
     decoder: the ``VoxelDecoder2`` (fc_0..fc_out Linear layers).
@@ -180,12 +196,18 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
     (the whole grid in one step).  ``hoist_variants`` (auto: R <= 128 and
     slab <= 16) builds each group's z/y tap variants once for the whole
     volume; ``coarse_outside`` (auto: R <= 128) computes the coarse term for
-    the whole grid once, cast to the compute dtype.
+    the whole grid once, cast to the compute dtype.  ``use_pallas`` picks
+    the head (module docstring): 0 and 2 take the structured parts, 1 the
+    per-scale stacks.
     """
     R = vox_res
     S = R if slab is None else int(slab)
     assert R % S == 0, (R, S)
     dt = compute_dtype
+    use_pallas = int(use_pallas)
+    if use_pallas not in (0, 1, 2):
+        raise ValueError(f'use_pallas must be 0, 1 or 2, got {use_pallas}')
+    structured = use_pallas != 1
     dev = vox_feats[0].device
     channels = tuple(int(f.shape[-1]) for f in vox_feats)
     w1 = decoder.fc_0.weight.t()  # (3610, 512), JAX (in, out) layout
@@ -203,20 +225,27 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
     def rows(idx) -> torch.Tensor:
         return torch.as_tensor(idx, device=dev)
 
-    groups = []
-    for si in kept:
-        if groups and vox_feats[groups[-1][0]].shape[1] \
-                == vox_feats[si].shape[1]:
-            groups[-1] = groups[-1] + (si,)
-        else:
-            groups.append((si,))
-    w1_parts = []
-    for g in groups:
-        gr = _group_w1_rows(channels, g)
-        cg = sum(channels[si] for si in g)
-        for sl in (slice(0, 5 * cg), slice(5 * cg, 6 * cg),
-                   slice(6 * cg, 7 * cg)):
-            w1_parts.append(w1v[rows(gr[sl])].to(dt))
+    if structured:
+        groups = []
+        for si in kept:
+            if groups and vox_feats[groups[-1][0]].shape[1] \
+                    == vox_feats[si].shape[1]:
+                groups[-1] = groups[-1] + (si,)
+            else:
+                groups.append((si,))
+        # fc_0 rows of each structured part [A5 | Ax- | Ax+] per group
+        w1_parts = []
+        for g in groups:
+            gr = _group_w1_rows(channels, g)
+            cg = sum(channels[si] for si in g)
+            for sl in (slice(0, 5 * cg), slice(5 * cg, 6 * cg),
+                       slice(6 * cg, 7 * cg)):
+                w1_parts.append(w1v[rows(gr[sl])].to(dt))
+    else:
+        # per kept scale: its (disp, channel) stack's fc_0 rows
+        groups = [(si,) for si in kept]
+        w1_parts = [w1v[rows(_scale_w1_rows(channels, si))].to(dt)
+                    for si in kept]
     w1_percep = w1[n_vox_rows:n_vox_rows + n_percep]
     w1_xyz = w1[n_vox_rows + n_percep:]
 
@@ -243,7 +272,7 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
 
     if hoist_variants is None:
         hoist_variants = R <= 128 and S <= 16
-    hoist = bool(hoist_variants)
+    hoist = bool(hoist_variants) and structured
     ent_ident = []
     for f in ent_vols:
         i0, _, w = _axis_plan(R, f.shape[0], 0.0, bb_min, bb_max)
@@ -336,6 +365,17 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
                 r_in = f.shape[0]
                 sub = _dyn_slice0(f, plan_los[gi][k], r_max)
                 variants = zy_variants(sub, r_in)
+                if not structured:
+                    # (7, r, R, R, C): each tap's source rows; one batched
+                    # x-lerp 'tsr,tryzc->tsyzc' (f32), cast, f32 freed
+                    V7 = torch.stack([variants[key] for (_, key) in TAPS])
+                    del variants
+                    A = torch.bmm(L7.float(),
+                                  V7.reshape(7, r_max, -1).float())
+                    del V7
+                    parts.append(A.to(dt).reshape(7, n, ch))
+                    del A
+                    continue
                 Vcat = torch.cat([variants[key] for (_, key) in TAPS[:5]],
                                  dim=-1)
                 A5 = _xlerp(L7[0], Vcat).to(dt).reshape(n, 5 * ch)
@@ -378,7 +418,17 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
         del vals, top, bot
 
         qxyz = torch.stack([p0, p1, p2], dim=-1).reshape(n, 3)
-        sdf = fused_stack_head(parts, coarse, percep, qxyz, w1_parts,
-                               w1_xyz, b1, w2, b2, w3, b3, w4, b4)
+        tail = (w1_xyz, b1, w2, b2, w3, b3, w4, b4)
+        if use_pallas == 1:
+            p512 = percep.float()
+            if coarse is not None:
+                p512 = p512 + coarse.float()
+            del percep, coarse
+            sdf = fused_fc0_mlp(parts, p512.to(dt), qxyz, w1_parts, *tail)
+        else:
+            head = fused_stack_head if use_pallas == 2 \
+                else fused_stack_head_plain
+            sdf = head(parts, coarse, percep, qxyz, w1_parts, *tail)
+        del parts
         out.append(sdf.reshape(S, R, R))
     return torch.cat(out, dim=0)

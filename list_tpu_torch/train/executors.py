@@ -5,9 +5,12 @@
 (``cuda`` unless the caller passes ``device='cpu'``) in eval mode.
 
 - ``predict_grid`` runs encode + dense-grid decode + the ``sdf_scale``
-  divide + the ``--fetch_dtype`` cast on the device and returns the
-  (R, R, R) f32 host grid; ``test`` adds marching cubes and, with
-  ``eval_pred``, the mesh metrics.
+  divide + the ``--fetch_dtype`` cast (+ the ``--fetch_mode band`` encode)
+  on the device and returns the (R, R, R) f32 host grid, or with
+  ``device_out`` the device result (a ``BandGrid`` in band mode) for a
+  fetch worker; ``predict_grid_batch`` encodes B images in one pass and
+  decodes each; ``test`` adds marching cubes and, with ``eval_pred``, the
+  mesh metrics.
 - ``train(batch)`` runs one optimizer step (forward in train mode, the
   occupancy and SDF losses, backward, Adam) on a host batch dict and
   returns ``(None, losses)``; ``train_multi(batches)`` runs one step per
@@ -25,17 +28,12 @@ import torch
 
 from list_tpu_torch.device import resolve_device
 from list_tpu_torch.eval.metrics import eval_mesh
+from list_tpu_torch.ops.band import BandGrid, band_encode, fetch_grid_f32
 from list_tpu_torch.ops.dense_grid import dense_grid_sdf
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
 from list_tpu_torch.ops.losses import occupancy_loss, sdf_loss
 from list_tpu_torch.train.state import make_optimizer
 from list_tpu_torch.utils.meshing import generate_mesh
-
-# Device bytes per grid query held by one slab of the dense decode
-# (structured parts, their f32 products, percep gathers and the coarse
-# term, in bf16 compute): a deliberately generous estimate used only to
-# pick a slab above R = 128.
-BYTES_PER_QUERY = 16384
 
 
 def total_loss(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -68,38 +66,69 @@ class LISTExecutor:
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
 
-    def _dense_plan(self) -> Optional[int]:
-        """Slab size of the dense decode, or None for the chunked decoder.
+    def _dense_plan(self):
+        """(slab, use_pallas) of the dense decode; slab None means the
+        chunked decoder.  The slab is the JAX package's: the whole grid in
+        one slab for the fused head at R <= 128, else the largest of
+        (64, 32, 16, 8, 4, 2) (above R = 192: (8, 4, 2)) dividing R.
 
-        R <= 128: the whole grid in one slab, as the JAX package picks on
-        one device (it fits the card's memory: a few GB of transients).
-        Above that: the largest slab in (64, 32, 16, 8, 4, 2) dividing R
-        whose transients fit half the free device memory (the whole host
-        memory budget is not probed on the CPU)."""
+        The head follows ``--use_pallas`` (0, 1 or 2) on the card and is
+        always 0 on the CPU, as the JAX package's is.  Its auto choice
+        (-1) differs: the JAX package takes the XLA head for multi-slab
+        grids after TPU measurements, but on the card that head (the
+        f32-upcast plain function) is 2.4x slower than K1, so -1 is K1 at
+        every R (PERF.md).  K1 takes any query count, so the JAX package's
+        Pallas tile gate is not needed."""
         R = self.vox_res
-        if R <= 128:
-            return R
-        free = (torch.cuda.mem_get_info(self.device)[0]
-                if self.device.type == 'cuda' else 1 << 62)
-        return next((s for s in (64, 32, 16, 8, 4, 2) if R % s == 0
-                     and s * R * R * BYTES_PER_QUERY <= free // 2), None)
+        cfg_up = int(getattr(self.config, 'use_pallas', -1))
+        on_card = self.device.type == 'cuda'
+        head = (2 if cfg_up == -1 else cfg_up) if on_card else 0
+        if on_card and R <= 128 and head == 2:
+            return R, 2
+        pref = (64, 32, 16, 8, 4, 2) if R <= 192 else (8, 4, 2)
+        slab = next((s for s in pref if R % s == 0), None)
+        if slab is None:
+            return None, 0
+        return slab, head
+
+    def _wire(self, fetch_dtype, fetch_mode):
+        if fetch_dtype is None:
+            fetch_dtype = getattr(self.config, 'fetch_dtype', 'float32')
+        if fetch_mode is None:
+            fetch_mode = getattr(self.config, 'fetch_mode', 'grid')
+        return fetch_dtype, fetch_mode
+
+    def _dense_finish(self, vox_feat, feat_l2, trans_mat, slab, use_pallas,
+                      fetch_dtype, fetch_mode):
+        """Dense decode + ``sdf_scale`` divide + wire cast (+ band encode)
+        of one image's encoding, on the device."""
+        grid = dense_grid_sdf(self.model.sdf_decoder, vox_feat, feat_l2,
+                              trans_mat, self.vox_res, slab=slab,
+                              compute_dtype=self.compute_dtype,
+                              bb_min=self.bb_min, bb_max=self.bb_max,
+                              use_pallas=use_pallas)
+        return self._finish(grid, fetch_dtype, fetch_mode)
+
+    def _finish(self, grid, fetch_dtype, fetch_mode):
+        wire = torch.bfloat16 if fetch_dtype == 'bfloat16' else torch.float32
+        grid = (grid / self.sdf_scale).to(wire)
+        if fetch_mode == 'band':
+            return BandGrid(band_encode(grid), grid, self.vox_res,
+                            fetch_dtype)
+        return grid
 
     @torch.inference_mode()
     def predict_grid(self, rgb_image: np.ndarray,
                      trans_mat: Optional[np.ndarray] = None,
                      fast: Optional[bool] = None,
+                     device_out: bool = False,
                      fetch_dtype: Optional[str] = None,
-                     fetch_mode: Optional[str] = None) -> np.ndarray:
-        """Dense (R, R, R) SDF field (f32 on the host) for one image."""
-        if fetch_dtype is None:
-            fetch_dtype = getattr(self.config, 'fetch_dtype', 'float32')
-        if fetch_mode is None:
-            fetch_mode = getattr(self.config, 'fetch_mode', 'grid')
-        if fetch_mode != 'grid':
-            raise NotImplementedError(
-                f"list_tpu_torch: fetch_mode '{fetch_mode}' is not ported "
-                "yet; pass fetch_mode='grid'")
-        wire = torch.bfloat16 if fetch_dtype == 'bfloat16' else torch.float32
+                     fetch_mode: Optional[str] = None):
+        """Dense (R, R, R) SDF field for one image: the f32 host grid, or
+        with ``device_out`` the device result for ``fetch_grid_f32`` (a
+        ``BandGrid`` in band mode, else the wire-dtype grid).  Band applies
+        to the dense path only: the chunked fallback returns the grid."""
+        fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
         self.model.eval()
         img = torch.as_tensor(np.asarray(rgb_image), dtype=torch.float32,
                               device=self.device)
@@ -108,24 +137,67 @@ class LISTExecutor:
         if fast is None:
             fast = bool(getattr(self.config, 'fast_grid', 1)) \
                 and img.shape[0] == 1
-        slab = self._dense_plan()
+        slab, use_pallas = self._dense_plan()
         t0 = time.perf_counter()
         enc = self.model.encode(img, tm)
         self._sync()
         t1 = time.perf_counter()
         if fast and slab is not None:
-            grid = dense_grid_sdf(self.model.sdf_decoder, enc['vox_feat'],
-                                  enc['feat_l2'], enc['trans_mat'],
-                                  self.vox_res, slab=slab,
-                                  compute_dtype=self.compute_dtype,
-                                  bb_min=self.bb_min, bb_max=self.bb_max)
+            out = self._dense_finish(enc['vox_feat'], enc['feat_l2'],
+                                     enc['trans_mat'], slab, use_pallas,
+                                     fetch_dtype, fetch_mode)
         else:
-            grid = self._chunked_decode(enc)
-        grid = (grid / self.sdf_scale).to(wire)
-        out = grid.float().cpu().numpy()
-        t2 = time.perf_counter()
-        self.timings.update(encode_s=t1 - t0, decode_s=t2 - t1)
+            out = self._finish(self._chunked_decode(enc), fetch_dtype,
+                               'grid')
+        if not device_out:
+            out = fetch_grid_f32(out)
+        self._sync()
+        self.timings.update(encode_s=t1 - t0,
+                            decode_s=time.perf_counter() - t1)
         return out
+
+    @torch.inference_mode()
+    def predict_grid_batch(self, rgb_images: np.ndarray,
+                           trans_mats: Optional[np.ndarray] = None,
+                           device_out: bool = False,
+                           fetch_dtype: Optional[str] = None,
+                           fetch_mode: Optional[str] = None):
+        """Dense SDF fields for B images with one batched encoder pass,
+        then one decode per image: a list of B device results with
+        ``device_out`` (each fetched on its own), else a (B, R, R, R) f32
+        host array.  ``timings`` holds the batch's ``encode_s`` and the
+        summed ``decode_s``."""
+        fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
+        slab, use_pallas = self._dense_plan()
+        if not (bool(getattr(self.config, 'fast_grid', 1))
+                and slab is not None):
+            grids = [self.predict_grid(
+                rgb_images[i:i + 1],
+                None if trans_mats is None else trans_mats[i:i + 1],
+                device_out=True, fetch_dtype=fetch_dtype,
+                fetch_mode=fetch_mode) for i in range(len(rgb_images))]
+        else:
+            self.model.eval()
+            img = torch.as_tensor(np.asarray(rgb_images),
+                                  dtype=torch.float32, device=self.device)
+            tm = (None if trans_mats is None else torch.as_tensor(
+                np.asarray(trans_mats), dtype=torch.float32,
+                device=self.device))
+            t0 = time.perf_counter()
+            enc = self.model.encode(img, tm)
+            self._sync()
+            t1 = time.perf_counter()
+            grids = [self._dense_finish(
+                [f[i:i + 1] for f in enc['vox_feat']],
+                [f[i:i + 1] for f in enc['feat_l2']],
+                enc['trans_mat'][i:i + 1], slab, use_pallas, fetch_dtype,
+                fetch_mode) for i in range(img.shape[0])]
+            self._sync()
+            self.timings.update(encode_s=t1 - t0,
+                                decode_s=time.perf_counter() - t1)
+        if device_out:
+            return grids
+        return np.stack([fetch_grid_f32(g) for g in grids])
 
     def _chunked_decode(self, enc) -> torch.Tensor:
         """The general gather decoder over grid chunks of test_pointnum."""

@@ -124,6 +124,40 @@ def test_fused_stack_head_kernel_matches_plain(cuda, n, coarse):
     torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
 
 
+def _mlp_args(n, channels, dev, seed=0):
+    rng = np.random.RandomState(seed)
+    bf = torch.bfloat16
+    t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a, np.float32)).to(dev, dt)
+    rows = 7 * sum(channels)
+    stacks = [t(rng.rand(7, n, c), bf) for c in channels]
+    w1 = [t(rng.uniform(-1, 1, (7 * c, 512)) / np.sqrt(rows), bf)
+          for c in channels]
+    return (stacks, t(rng.randn(n, 512), bf), t(rng.uniform(-1, 1, (n, 3))),
+            w1, t(rng.randn(3, 512) * 0.3), t(rng.randn(512) * 0.1),
+            t(rng.uniform(-1, 1, (512, 256)) / np.sqrt(512), bf),
+            t(rng.randn(256) * 0.1),
+            t(rng.uniform(-1, 1, (256, 256)) / 16.0, bf),
+            t(rng.randn(256) * 0.1),
+            t(rng.uniform(-1, 1, (256, 1)) / 16.0, bf), t(rng.randn(1)))
+
+
+@pytest.mark.parametrize('n', [64, 1000])
+@pytest.mark.parametrize('channels', [(1, 16, 32, 64), (1,), (3, 5)])
+def test_fused_fc0_mlp_kernel_matches_plain(cuda, n, channels):
+    """K4 against fused_fc0_mlp_plain: bf16 operands, f32 accumulation on
+    both sides, the C = 1 scale's products exact on both; a different f32
+    sum order can flip one bf16 rounding of a ReLU output (2^-8 relative):
+    |kernel - plain| <= 1e-2 + 1e-2 |plain|."""
+    args = _mlp_args(n, channels, cuda)
+    before = fused_fc0.mlp_launches
+    got = fused_fc0.fused_fc0_mlp(*args)
+    torch.cuda.synchronize()
+    assert fused_fc0.mlp_launches == before + 1
+    ref = fused_fc0.fused_fc0_mlp_plain(*args)
+    torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 1, 4, 4, 4, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -135,3 +169,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     args[0] = [p.float() for p in args[0]]
     with pytest.raises(ValueError):
         fused_fc0.fused_stack_head(*args)
+    args = list(_mlp_args(64, (1, 16), cuda))
+    args[0] = [s.transpose(0, 1) for s in args[0]]  # (n, 7, C): not t-major
+    with pytest.raises(ValueError):
+        fused_fc0.fused_fc0_mlp(*args)

@@ -14,10 +14,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Importing the port, and everything chip_smoke.py imports, loads no
-    jax/flax/optax module and no module of the JAX package (``list_tpu``
-    or ``list_tpu.*`` -- ``list_tpu_torch`` itself must not trip the
-    check)."""
+    """Importing the port, its entry script infer_torch.py, and everything
+    chip_smoke.py imports, loads no jax/flax/optax module and no module of
+    the JAX package (``list_tpu`` or ``list_tpu.*`` -- ``list_tpu_torch``
+    itself must not trip the check)."""
     code = (
         'import sys, ast\n'
         'import list_tpu_torch, list_tpu_torch.models, list_tpu_torch.train\n'
@@ -29,6 +29,13 @@ def test_port_and_chip_smoke_import_no_jax():
         'import list_tpu_torch.eval, list_tpu_torch.utils\n'
         'import list_tpu_torch.data, list_tpu_torch.ops.losses\n'
         'import list_tpu_torch.train.state, list_tpu_torch.models.norm\n'
+        'import list_tpu_torch.ops.band, list_tpu_torch.registry\n'
+        'import list_tpu_torch.infer.pipeline, list_tpu_torch.data.shapenet\n'
+        'import list_tpu_torch.train.checkpoints\n'
+        'import list_tpu_torch.train.trainer\n'
+        'import list_tpu_torch.utils.flax_msgpack\n'
+        'import list_tpu_torch.utils.logging\n'
+        'import list_tpu_torch.data.transforms, infer_torch\n'
         'src = open("chip_smoke.py").read()\n'
         'for node in ast.walk(ast.parse(src)):\n'
         '    if isinstance(node, ast.Import):\n'

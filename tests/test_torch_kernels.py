@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from list_tpu.ops.pallas.fused_fc0 import fused_fc0_mlp as j_mlp
 from list_tpu.ops.pallas.fused_fc0 import fused_stack_head as j_head
 from list_tpu.ops.pallas.stencil3d import conv3x3x3_cmajor
 from list_tpu_torch.ops.cuda import fused_fc0, stencil3d
@@ -63,4 +64,30 @@ def test_fused_stack_head_plain_matches_pallas_interpret(coarse):
     got = fused_fc0.fused_stack_head(
         [t(p) for p in parts], None if c is None else t(c), t(percep), t(q),
         [t(w) for w in w1], *[t(a) for a in rest]).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize('channels', [(1, 4), (2, 1, 3)])
+def test_fused_fc0_mlp_plain_matches_pallas_interpret(channels):
+    """K4 module in f32 at n = 256, d1 = 16, t-major (7, n, C_s) stacks with
+    a C = 1 scale (the TPU kernel's broadcast FMA): atol 2e-4, rtol 1e-3
+    (the dense-grid tests' tolerance for the fused heads)."""
+    rng = np.random.RandomState(4)
+    n = 256
+    _, _, percep, q, _, wxyz, b1, w2, b2, w3, b3, w4, b4 = _head_inputs(
+        rng, n, 16, 8, (1,), None)
+    stacks = [rng.rand(7, n, c).astype(np.float32) for c in channels]
+    w1 = [(rng.randn(7 * c, 16) / np.sqrt(7 * sum(channels))).astype(
+        np.float32) for c in channels]
+    rest = (wxyz, b1, w2, b2, w3, b3, w4, b4)
+    ref = np.asarray(j_mlp(
+        [jnp.asarray(a) for a in stacks], jnp.asarray(percep),
+        jnp.asarray(q), [jnp.asarray(w) for w in w1],
+        *[jnp.asarray(a) for a in rest], tile=n, interpret=True))
+    t = lambda a: torch.as_tensor(a)  # noqa: E731
+    before = fused_fc0.mlp_launches
+    got = fused_fc0.fused_fc0_mlp(
+        [t(a) for a in stacks], t(percep), t(q), [t(w) for w in w1],
+        *[t(a) for a in rest]).numpy()
+    assert fused_fc0.mlp_launches == before  # CPU: the plain version
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)

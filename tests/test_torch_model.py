@@ -95,6 +95,37 @@ def test_dense_grid_matches_fused_head_interpret(pair, mode, slab):
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
 
 
+@pytest.mark.parametrize('slab', [4, 16])
+@pytest.mark.parametrize('mode', list(MODES))
+@pytest.mark.parametrize('use_pallas', [1, 0])
+def test_dense_grid_other_heads_match(pair, use_pallas, mode, slab):
+    """dense_grid_sdf with use_pallas=1 (the per-scale t-major stacks, the
+    coarse term folded into the perceptual one, K4's plain version on the
+    CPU) and use_pallas=0 (the XLA head, fused_stack_head_plain, over the
+    structured parts) against the JAX package's same mode with the Pallas
+    head in interpret mode, f32, in each coarse mode: atol 2e-4,
+    rtol 1e-3."""
+    _, v, jenc, tm, tenc = pair
+    kw = MODES[mode]
+    ref = np.asarray(j_dense(
+        v['params']['sdf_decoder'], jenc['vox_feat'], jenc['feat_l2'],
+        jenc['trans_mat'], R, slab=slab, compute_dtype=jnp.float32,
+        use_pallas=use_pallas, pallas_interpret=True, **kw))
+    got = dense_grid_sdf(tm.sdf_decoder, tenc['vox_feat'], tenc['feat_l2'],
+                         tenc['trans_mat'], R, slab=slab,
+                         compute_dtype=torch.float32, use_pallas=use_pallas,
+                         **kw).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
+
+
+def test_dense_grid_rejects_an_unknown_head(pair):
+    """A use_pallas outside 0/1/2 raises instead of picking a head."""
+    _, _, _, tm, tenc = pair
+    with pytest.raises(ValueError, match='use_pallas'):
+        dense_grid_sdf(tm.sdf_decoder, tenc['vox_feat'], tenc['feat_l2'],
+                       tenc['trans_mat'], R, use_pallas=-1)
+
+
 def test_dense_grid_coarse_term_is_used(pair, monkeypatch):
     """The coarse modes really feed a coarse term to the head (and the
     no-coarse mode does not)."""
