@@ -18,16 +18,19 @@
 // about 2,622 B a query of input (about 0.82 ms at 3.35 TB/s): bound by
 // tensor-core operations.
 //
-// Design (simple first; the same scheme as K1): one block of 8 warps per
-// 64-query tile stages each scale's seven taps as one zero-padded
+// Design (the same scheme as K1): one block of 8 warps per 64-query tile
+// stages each scale's seven taps as one zero-padded
 // (64 x roundup16(7 * C_s)) bf16 block of columns (t, c), i.e. widths
 // 16, 112, 224 and 448 -- an 800-column tile -- so the 28 per-tap partial
-// products of the TPU kernel become one WMMA product against the wrapper's
-// concatenated, zero-padded W1 rows.  For C_s = 1 the TPU kernel uses seven
-// f32 broadcast FMAs; a bf16 x bf16 product is exact in f32, so the tensor
-// cores compute the same terms, only summed in another order.  The head
-// over the staged tile is fused_head.cuh's, shared with K1.  Shared memory
-// at the production shape: 174 KB, one block per SM.
+// products of the TPU kernel become one tensor-core product against the
+// wrapper's concatenated, zero-padded W1 rows.  For C_s = 1 the TPU kernel
+// uses seven f32 broadcast FMAs; a bf16 x bf16 product is exact in f32, so
+// the tensor cores compute the same terms, only summed in another order.
+// The head over the staged tile is fused_head.cuh's, shared with K1: mma.sync
+// from shared memory, the weights streamed once per tile through a cp.async
+// ring (its header gives the ring and the budget).  This kernel's staging
+// is still one bf16 at a time.  Shared memory at the production shape:
+// 220,672 B, one block per SM.
 #include "fused_head.cuh"
 
 using namespace fused_head;

@@ -9,75 +9,245 @@
 // with bf16 operands and f32 accumulation, writing no activation to device
 // memory.
 //
-// One block of 8 warps per 64-query tile.  The (64 x 512) f32 fc0
-// accumulator does not fit registers at once, so it is computed in two
-// 256-column halves (64 f32 registers a thread), each folded through the
-// epilogue into a bf16 h1 tile in shared memory; fc_1 and fc_2 read their A
-// operand from shared memory and their B fragments (W1/W2/W3, L2-resident)
-// straight from global memory.  Tensor cores via WMMA bf16 16x16x16 with
-// f32 accumulation.
+// Design: one block of 8 warps per 64-query tile, one block per SM.  The
+// head is four passes of a (64 x 256) output: fc_0 in its two 256-column
+// halves (W1[:, 0:256] and W1[:, 256:512], ktot rows each), fc_1 (W2,
+// 512 x 256) and fc_2 (W3, 256 x 256).  The B operands of all four passes
+// stream, in that order, through one ring of S slices of KS weight rows x
+// 256 columns in shared memory (row stride 264: conflict-free ldmatrix).
+// All 256 threads fill a slice with 16-byte cp.async.cg (a warp copies one
+// 512-byte row per instruction), one commit group per slice; a slice is
+// read after cp.async.wait_group(S - 2) and one __syncthreads(), which also
+// frees the slot that the next fill overwrites, so S - 1 slices are in
+// flight while one is multiplied, across the pass boundaries too.  So each
+// weight byte crosses from L2 into the SM once per tile (1.25 MB a tile at
+// ktot = 832), where the earlier head let each of four warps load its own
+// W fragments from L2 (4x the traffic, no prefetch).
+//
+// Each warp computes a 32 x 64 block of a pass (warps 2 rows x 4 columns)
+// with mma.sync.m16n8k16 bf16 -> f32 from ldmatrix fragments: A from the
+// staged tile (fc_0), h1 (fc_1) or h2 (fc_2) in shared memory, B from the
+// ring (ldmatrix.trans).  The epilogues run on the accumulator registers:
+// fc_0 adds percep, coarse, xyz . W1_xyz and b1 straight from the
+// accumulator layout, and every ReLU output is recast to bf16 into shared
+// memory for the next pass.
+//
+// Shared memory at ktot = 832 (K1): staged tile 64 x 840 bf16 (107,520 B,
+// reused for h2) + h1 64 x 520 (66,560 B, reused for h3) + the ring,
+// KS x S = 32 x 3 (50,688 B): 224,768 of the 232,448 B a block may have.
+// At ktot = 800 (K4) 220,672 B.  What bounds it now: the per-tile staging
+// and the epilogue's percep/coarse loads are not overlapped with the
+// tensor work (one block per SM, no persistent grid), and mma.sync issues
+// at a fraction of wgmma's rate; wgmma + TMA + a persistent grid are the
+// next step.  Measured times: PERF.md section 6.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-namespace fused_head {
+// The ring's shape: KS weight rows a slice, S slices (a build may override
+// both, e.g. -DFUSED_HEAD_KS=16 -DFUSED_HEAD_STAGES=4).
+#ifndef FUSED_HEAD_KS
+#define FUSED_HEAD_KS 32
+#endif
+#ifndef FUSED_HEAD_STAGES
+#define FUSED_HEAD_STAGES 3
+#endif
 
-using namespace nvcuda;
+namespace fused_head {
 
 constexpr int TM = 64;   // queries per block
 constexpr int NT = 256;  // threads per block
 constexpr int NW = NT / 32;
 constexpr int D1 = 512, D2 = 256, D3 = 256;
 constexpr int LD1 = D1 + 8, LD2 = D2 + 8, LD3 = D3 + 8;  // padded smem rows
+constexpr int NC = 256;       // output columns of one pass
+constexpr int LDR = NC + 8;   // ring row stride
+constexpr int KS = FUSED_HEAD_KS;
+constexpr int S = FUSED_HEAD_STAGES;
 constexpr long long MAX_SMEM = 232448;
+static_assert(KS % 16 == 0 && KS % NW == 0 && D2 % KS == 0 && D3 % KS == 0,
+              "a ring slice is a multiple of 16 rows, 8 warps and W2/W3");
+static_assert(S >= 2, "the ring needs a slice in flight beside the one read");
 
 typedef __nv_bfloat16 bf16;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-    FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-    FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // Shared memory a block needs for a staged width of ktot columns: the
-// staged tile (reused for h2), h1 (reused for h3), and a 16x16 f32 scratch
-// tile per warp.
+// staged tile (reused for h2), h1 (reused for h3) and the weight ring.
 inline long long smem_bytes(int ktot) {
   const int lda = ktot + 8;
   return (long long)TM * (lda > LD2 ? lda : LD2) * 2 +
-         (long long)TM * LD1 * 2 + (long long)NW * 256 * 4;
+         (long long)TM * LD1 * 2 + (long long)S * KS * LDR * 2;
 }
 
-// One warp: a 16-row strip of A (shared memory, lda) times 128 columns of
-// B (global, ldb) over depth K -> 8 accumulator tiles.
-__device__ __forceinline__ void warp_gemm(FragC (&acc)[8], const bf16* a,
-                                          int lda, const bf16* b, int ldb,
-                                          int K) {
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled past src_bytes (0 or 16).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row (l & 7) of matrix (l >> 3).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The weight slices of one tile, in stream order: W1[:, 0:256] and
+// W1[:, 256:512] (ktot rows each, n1 slices each, the last one short when
+// KS does not divide ktot), W2 (512 rows), W3 (256 rows).
+struct Stream {
+  const bf16* w1;
+  const bf16* w2;
+  const bf16* w3;
+  int ktot, n1, total;
+};
+
+// Fill ring slot j % S with slice j (nothing past the stream's end) and
+// commit one group, empty or not, so that groups and slices stay in step.
+__device__ __forceinline__ void issue_slice(bf16* ring, const Stream& st,
+                                            int j) {
+  if (j < st.total) {
+    const bf16* src;
+    int ld, r0, rows;
+    if (j < 2 * st.n1) {
+      const int h = j >= st.n1;
+      src = st.w1 + h * NC;
+      ld = D1;
+      r0 = (j - h * st.n1) * KS;
+      rows = st.ktot;
+    } else if (j < 2 * st.n1 + D1 / KS) {
+      src = st.w2;
+      ld = D2;
+      r0 = (j - 2 * st.n1) * KS;
+      rows = D1;
+    } else {
+      src = st.w3;
+      ld = D3;
+      r0 = (j - 2 * st.n1 - D1 / KS) * KS;
+      rows = D2;
+    }
+    bf16* dst = ring + (j % S) * KS * LDR;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
-  for (int k = 0; k < K; k += 16) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + k, lda);
+    for (int i = 0; i < KS / NW; ++i) {
+      const int r = warp + i * NW;
+      if (r0 + r < rows)
+        cp_async16(dst + r * LDR + lane * 8,
+                   src + (size_t)(r0 + r) * ld + lane * 8, 16);
+    }
+  }
+  cp_async_commit();
+}
+
+// One pass: the block's (64 x K) A in shared memory (row stride lda) times
+// the next ceil(K / KS) ring slices -> each warp's 32 x 64 accumulator
+// block, acc[mi][nj] the m16n8 tile at rows wr*32 + mi*16, columns
+// wc*64 + nj*8.  it counts the slices of the stream consumed so far.
+__device__ __forceinline__ void ring_pass(float (&acc)[2][8][4],
+                                          const bf16* a, int lda, int K,
+                                          bf16* ring, const Stream& st,
+                                          int& it) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      FragB fb;
-      wmma::load_matrix_sync(fb, b + (size_t)k * ldb + j * 16, ldb);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3;
+  // ldmatrix addresses: rows (lane & 15), column block (lane >> 4) * 8
+  const bf16* a_lane = a + (wr * 32 + (lane & 15)) * lda + (lane >> 4) * 8;
+  const int b_lane = (lane & 15) * LDR + wc * 64 + (lane >> 4) * 8;
+  for (int k0 = 0; k0 < K; k0 += KS, ++it) {
+    cp_async_wait<S - 2>();  // this thread's copies of slice it are in
+    __syncthreads();         // everyone's are, and slot it - 1 is free
+    issue_slice(ring, st, it + S - 1);
+    const bf16* b = ring + (it % S) * KS * LDR + b_lane;
+    const int kn = K - k0;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      if (kk < kn) {
+        uint32_t fa[2][4], fb[4][4];
+        ldsm_x4(fa[0], a_lane + k0 + kk);
+        ldsm_x4(fa[1], a_lane + 16 * lda + k0 + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ldsm_x4_t(fb[q], b + kk * LDR + q * 16);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            mma_bf16(acc[mi][2 * q], fa[mi], fb[q][0], fb[q][1]);
+            mma_bf16(acc[mi][2 * q + 1], fa[mi], fb[q][2], fb[q][3]);
+          }
+      }
     }
   }
 }
 
-__device__ __forceinline__ void unpack8(const uint4& u, float* v) {
-  const bf16* p = reinterpret_cast<const bf16*>(&u);
+// relu(acc + bias) -> bf16 into dst (row stride ld) at the accumulator
+// layout's rows and columns col0 + wc*64 + nj*8 + 2*tig.
+__device__ __forceinline__ void relu_store(const float (&acc)[2][8][4],
+                                           const float* __restrict__ bias,
+                                           bf16* dst, int ld) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(p[i]);
+  for (int nj = 0; nj < 8; ++nj) {
+    const int col = wc * 64 + nj * 8 + tig * 2;
+    const float2 bb = *reinterpret_cast<const float2*>(bias + col);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* c = &acc[i >> 1][nj][(i & 1) * 2];
+      *reinterpret_cast<__nv_bfloat162*>(dst + (wr * 32 + i * 8 + g) * ld +
+                                         col) =
+          __floats2bfloat162_rn(fmaxf(c[0] + bb.x, 0.f),
+                                fmaxf(c[1] + bb.y, 0.f));
+    }
+  }
 }
 
 // The head over a staged tile: smem holds the (TM x ktot) bf16 operand of
-// the block's queries row0 .. row0 + TM - 1 at row stride ktot + 8, staged
-// and followed by __syncthreads() by the caller.  COARSE: 0 no coarse
+// the block's queries row0 .. row0 + TM - 1 at row stride ktot + 8, written
+// by the caller with plain stores or with cp.async groups committed before
+// the call; the head's first barrier publishes both.  COARSE: 0 no coarse
 // term, 1 bf16 (n, 512), 2 f32 (n, 512).
 template <int COARSE>
 __device__ __forceinline__ void head_from_staged(
@@ -95,104 +265,91 @@ __device__ __forceinline__ void head_from_staged(
   bf16* h2_s = a_s;                           // reuses the staged region
   bf16* h1_s = a_s + reg0;
   bf16* h3_s = h1_s;                          // reuses the h1 region
-  float* scratch = reinterpret_cast<float*>(h1_s + TM * LD1);
+  bf16* ring = h1_s + TM * LD1;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rt = warp & 3;   // 16-row strip of the tile
-  const int cg = warp >> 2;  // 128-column group
-  float* scr = scratch + warp * 256;
-  // epilogue: lane owns 8 consecutive columns of one row of a 16x16 tile
-  const int er = lane >> 1, ec = (lane & 1) * 8;
-  const int lrow = rt * 16 + er;
-  const int grow = row0 + lrow;
-  const bool valid = grow < n;
-  float q0 = 0.f, q1 = 0.f, q2 = 0.f;
-  if (valid) {
-    q0 = qxyz[(size_t)grow * qstride];
-    q1 = qxyz[(size_t)grow * qstride + 1];
-    q2 = qxyz[(size_t)grow * qstride + 2];
+  Stream st{w1, w2, w3, ktot, (ktot + KS - 1) / KS, 0};
+  st.total = 2 * st.n1 + (D1 + D2) / KS;
+#pragma unroll
+  for (int j = 0; j < S - 1; ++j) issue_slice(ring, st, j);
+  int it = 0;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wr = warp >> 2, wc = warp & 3, g = lane >> 2, tig = lane & 3;
+  // the thread's four accumulator rows: wr*32 + i*8 + g
+  float q[4][3];
+  bool valid[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int grow = row0 + wr * 32 + i * 8 + g;
+    valid[i] = grow < n;
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      q[i][d] = valid[i] ? qxyz[(size_t)grow * qstride + d] : 0.f;
   }
-  FragC acc[8];
-  float v[8];
+  float acc[2][8][4];
 
   // ---- fc_0 + percep + coarse + xyz + b1, ReLU -> h1 (two halves) ----
   for (int half = 0; half < 2; ++half) {
-    const int colbase = half * 256 + cg * 128;
-    warp_gemm(acc, a_s + rt * 16 * lda, lda, w1 + colbase, D1, ktot);
-    for (int j = 0; j < 8; ++j) {
-      wmma::store_matrix_sync(scr, acc[j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int col = colbase + j * 16 + ec;
+    ring_pass(acc, a_s, lda, ktot, ring, st, it);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = scr[er * 16 + ec + i];
-      if (valid) {
-        const size_t base = (size_t)grow * D1 + col;
-        float t[8];
-        unpack8(*reinterpret_cast<const uint4*>(percep + base), t);
+    for (int nj = 0; nj < 8; ++nj) {
+      const int col = half * NC + wc * 64 + nj * 8 + tig * 2;
+      const float2 bb = *reinterpret_cast<const float2*>(b1 + col);
+      const float2 x0 = *reinterpret_cast<const float2*>(w1xyz + col);
+      const float2 x1 = *reinterpret_cast<const float2*>(w1xyz + D1 + col);
+      const float2 x2 =
+          *reinterpret_cast<const float2*>(w1xyz + 2 * D1 + col);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) v[i] += t[i];
-        if (COARSE == 1) {
-          unpack8(*reinterpret_cast<const uint4*>(
-                      static_cast<const bf16*>(coarse) + base), t);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) v[i] += t[i];
-        } else if (COARSE == 2) {
-          const float4* cf = reinterpret_cast<const float4*>(
-              static_cast<const float*>(coarse) + base);
-          const float4 c0 = cf[0], c1 = cf[1];
-          v[0] += c0.x; v[1] += c0.y; v[2] += c0.z; v[3] += c0.w;
-          v[4] += c1.x; v[5] += c1.y; v[6] += c1.z; v[7] += c1.w;
+      for (int i = 0; i < 4; ++i) {
+        const int lrow = wr * 32 + i * 8 + g;
+        float v0 = acc[i >> 1][nj][(i & 1) * 2];
+        float v1 = acc[i >> 1][nj][(i & 1) * 2 + 1];
+        if (valid[i]) {
+          const size_t base = (size_t)(row0 + lrow) * D1 + col;
+          const float2 p = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(percep + base));
+          v0 += p.x;
+          v1 += p.y;
+          if (COARSE == 1) {
+            const float2 c = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    static_cast<const bf16*>(coarse) + base));
+            v0 += c.x;
+            v1 += c.y;
+          } else if (COARSE == 2) {
+            const float2 c = *reinterpret_cast<const float2*>(
+                static_cast<const float*>(coarse) + base);
+            v0 += c.x;
+            v1 += c.y;
+          }
+          v0 += q[i][0] * x0.x + q[i][1] * x1.x + q[i][2] * x2.x + bb.x;
+          v1 += q[i][0] * x0.y + q[i][1] * x1.y + q[i][2] * x2.y + bb.y;
         }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          v[i] += q0 * w1xyz[col + i] + q1 * w1xyz[D1 + col + i] +
-                  q2 * w1xyz[2 * D1 + col + i] + b1[col + i];
+        *reinterpret_cast<__nv_bfloat162*>(h1_s + lrow * LD1 + col) =
+            __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        h1_s[lrow * LD1 + col + i] = __float2bfloat16(fmaxf(v[i], 0.f));
-      __syncwarp();
     }
   }
-  __syncthreads();
+  // (the next pass's first barrier publishes each epilogue's stores)
 
   // ---- fc_1: h2 = relu(h1 @ W2 + b2) -> bf16 ----
-  warp_gemm(acc, h1_s + rt * 16 * LD1, LD1, w2 + cg * 128, D2, D1);
-  for (int j = 0; j < 8; ++j) {
-    wmma::store_matrix_sync(scr, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int col = cg * 128 + j * 16 + ec;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      h2_s[lrow * LD2 + col + i] = __float2bfloat16(
-          fmaxf(scr[er * 16 + ec + i] + b2[col + i], 0.f));
-    __syncwarp();
-  }
-  __syncthreads();
+  ring_pass(acc, h1_s, LD1, D1, ring, st, it);
+  relu_store(acc, b2, h2_s, LD2);
 
   // ---- fc_2: h3 = relu(h2 @ W3 + b3) -> bf16 ----
-  warp_gemm(acc, h2_s + rt * 16 * LD2, LD2, w3 + cg * 128, D3, D2);
-  for (int j = 0; j < 8; ++j) {
-    wmma::store_matrix_sync(scr, acc[j], 16, wmma::mem_row_major);
-    __syncwarp();
-    const int col = cg * 128 + j * 16 + ec;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      h3_s[lrow * LD3 + col + i] = __float2bfloat16(
-          fmaxf(scr[er * 16 + ec + i] + b3[col + i], 0.f));
-    __syncwarp();
-  }
+  ring_pass(acc, h2_s, LD2, D2, ring, st, it);
+  relu_store(acc, b3, h3_s, LD3);
   __syncthreads();
 
   // ---- fc_out: four threads per query row, f32 dot of 64 columns each ----
   {
     const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
     const bf16* hr = h3_s + r * LD3 + qd * (D3 / 4);
-    const bf16* wr = w4 + qd * (D3 / 4);
+    const bf16* wr4 = w4 + qd * (D3 / 4);
     float s = 0.f;
 #pragma unroll 8
     for (int c = 0; c < D3 / 4; ++c)
-      s = fmaf(__bfloat162float(hr[c]), __bfloat162float(wr[c]), s);
+      s = fmaf(__bfloat162float(hr[c]), __bfloat162float(wr4[c]), s);
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     const int row = row0 + r;

@@ -15,15 +15,19 @@
 // about 3,666 B a query of input (about 2.3 ms at 3.35 TB/s): bound by
 // tensor-core operations.
 //
-// Design (simple first; wgmma/TMA are later work): one block of 8 warps
-// per 64-query tile.  The nine parts are staged once into shared memory as
-// one zero-padded (64 x sum roundup16(K_i)) bf16 tile, so the kernel never
-// needs the concat in device memory and ragged K_i (85, 17) and a ragged
-// last query tile are masked in the staging loop.  The matching W1 rows are
-// concatenated and zero-padded by the wrapper.  The head over the staged
-// tile (fc_0 in two 256-column WMMA halves, the tail from shared memory) is
-// fused_head.cuh's, shared with K4.  Shared memory at the production shape:
-// 182 KB, one block per SM.
+// Design: one block of 8 warps per 64-query tile.  The nine parts are
+// staged once into shared memory as one zero-padded
+// (64 x sum roundup16(K_i)) bf16 tile, so the kernel never needs the concat
+// in device memory; the matching W1 rows are concatenated and zero-padded
+// by the wrapper.  Parts whose rows are 16-byte aligned (K % 8 == 0 and a
+// 16-byte aligned base: 160, 32, 32, 320, 64, 64, 672 of the 791 columns)
+// are staged with 16-byte cp.async.cg, zero-filled past K and past the last
+// query; the others (K = 85, 17) with 2-byte loads, a warp's eight rows in
+// flight at once.  No index is divided.  The head over the staged tile
+// (fc_0, fc_1, fc_2 with mma.sync from shared memory, the weights streamed
+// once per tile through a cp.async ring) is fused_head.cuh's, shared with
+// K4; its header gives the ring and the shared-memory budget.  Shared
+// memory at the production shape: 224,768 B, one block per SM.
 #include "fused_head.cuh"
 
 using namespace fused_head;
@@ -37,6 +41,7 @@ struct Parts {
   int k[MAX_PARTS];     // columns of part p
   int kpad[MAX_PARTS];  // k rounded up to 16
   int off[MAX_PARTS];   // first column of part p in the staged tile
+  int vec[MAX_PARTS];   // 1: rows 16-byte aligned (K % 8 == 0, base too)
   int count;
 };
 
@@ -61,18 +66,40 @@ fused_stack_head_kernel(Parts parts, int ktot, int n,
   const int lda = ktot + 8;
   bf16* a_s = reinterpret_cast<bf16*>(smem);
   const int row0 = blockIdx.x * TM;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // a warp stages rows warp + j * NW (j < TM / NW), its lanes the columns
+  for (int p = 0; p < parts.count; ++p) {
+    if (!parts.vec[p]) continue;
+    const int K = parts.k[p], kc = K / 8, off = parts.off[p];
+    const bf16* src = parts.ptr[p];
+    for (int c = lane; c < parts.kpad[p] / 8; c += 32)
+#pragma unroll
+      for (int j = 0; j < TM / NW; ++j) {
+        const int r = warp + j * NW, row = row0 + r;
+        const bool in = row < n && c < kc;
+        cp_async16(a_s + r * lda + off + c * 8,
+                   in ? src + (size_t)row * K + c * 8 : src, in ? 16 : 0);
+      }
+  }
+  cp_async_commit();
   const bf16 zero = __float2bfloat16(0.f);
   for (int p = 0; p < parts.count; ++p) {
-    const int K = parts.k[p], kp = parts.kpad[p], off = parts.off[p];
+    if (parts.vec[p]) continue;
+    const int K = parts.k[p], off = parts.off[p];
     const bf16* src = parts.ptr[p];
-    for (int i = threadIdx.x; i < TM * kp; i += NT) {
-      const int r = i / kp, c = i - r * kp;
-      const int row = row0 + r;
-      a_s[r * lda + off + c] =
-          (row < n && c < K) ? src[(size_t)row * K + c] : zero;
+    for (int c = lane; c < parts.kpad[p]; c += 32) {
+      bf16 v[TM / NW];
+#pragma unroll
+      for (int j = 0; j < TM / NW; ++j) {
+        const int row = row0 + warp + j * NW;
+        v[j] = (row < n && c < K) ? src[(size_t)row * K + c] : zero;
+      }
+#pragma unroll
+      for (int j = 0; j < TM / NW; ++j)
+        a_s[(warp + j * NW) * lda + off + c] = v[j];
     }
   }
-  __syncthreads();
+  // head_from_staged's first barrier publishes the staged tile
   head_from_staged<COARSE>(smem, ktot, row0, n, coarse, percep, qxyz,
                            qstride, w1, w1xyz, b1, w2, b2, w3, b3, w4, b4,
                            out);
@@ -122,6 +149,8 @@ extern "C" int fused_stack_head_bf16(
     P.k[p] = part_k[p];
     P.kpad[p] = (part_k[p] + 15) / 16 * 16;
     P.off[p] = off;
+    P.vec[p] = part_k[p] % 8 == 0 &&
+               reinterpret_cast<uintptr_t>(part_ptrs[p]) % 16 == 0;
     off += P.kpad[p];
   }
   P.count = nparts;

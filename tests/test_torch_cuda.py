@@ -88,14 +88,21 @@ def test_conv3x3x3_gradients_on_the_card(cuda, ci, co):
             1e-4 * float(ref.abs().max())
 
 
-def _head_args(n, coarse, dev, seed=0):
+K1_KS = (85, 17, 17, 160, 32, 32, 320, 64, 64)  # the production parts
+
+
+def _head_args(n, coarse, dev, seed=0, Ks=K1_KS, offset=0):
+    """K1's arguments; ``offset`` > 0 starts each part that many bf16
+    elements into its buffer, so no part's rows are 16-byte aligned."""
     rng = np.random.RandomState(seed)
-    Ks = (85, 17, 17, 160, 32, 32, 320, 64, 64)
     bf = torch.bfloat16
     t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
         np.ascontiguousarray(a, np.float32)).to(dev, dt)
-    parts = [t(rng.rand(n, K), bf) for K in Ks]
-    w1 = [t(rng.uniform(-1, 1, (K, 512)) / np.sqrt(791), bf) for K in Ks]
+    parts = []
+    for K in Ks:
+        buf = torch.empty(n * K + offset, dtype=bf, device=dev)
+        parts.append(buf[offset:].view(n, K).copy_(t(rng.rand(n, K), bf)))
+    w1 = [t(rng.uniform(-1, 1, (K, 512)) / np.sqrt(sum(Ks)), bf) for K in Ks]
     c = None if coarse is None else t(rng.randn(n, 512),
                                       bf if coarse == 'bf16'
                                       else torch.float32)
@@ -109,13 +116,26 @@ def _head_args(n, coarse, dev, seed=0):
             t(rng.uniform(-1, 1, (256, 1)) / 16.0, bf), t(rng.randn(1)))
 
 
-@pytest.mark.parametrize('n', [64, 1000])
+# (Ks, offset): the production parts; one part (padded width 32); padded
+# widths 288 and 144 (144 is not a multiple of a 32-row ring slice, so the
+# last slice of each W1 half is short; K = 8 pads a zero 16-byte chunk);
+# the production parts with no 16-byte aligned part (all staged 2 bytes at
+# a time)
+HEAD_PARTS = [(K1_KS, 0), ((17,), 0), ((85, 17, 160), 0), ((85, 17, 8), 0),
+              (K1_KS, 1)]
+
+
+@pytest.mark.parametrize('Ks,offset', HEAD_PARTS,
+                         ids=['prod', '17', '85-17-160', '85-17-8',
+                              'prod-unaligned'])
+@pytest.mark.parametrize('n', [64, 1000, 64 * 150 + 37])
 @pytest.mark.parametrize('coarse', [None, 'bf16', 'f32'])
-def test_fused_stack_head_kernel_matches_plain(cuda, n, coarse):
+def test_fused_stack_head_kernel_matches_plain(cuda, n, coarse, Ks, offset):
     """bf16 operands, f32 accumulation on both sides; the ReLU outputs are
     recast to bf16, where a different f32 sum order can flip one rounding
-    step (2^-8 relative): |kernel - plain| <= 1e-2 + 1e-2 |plain|."""
-    args = _head_args(n, coarse, cuda)
+    step (2^-8 relative): |kernel - plain| <= 1e-2 + 1e-2 |plain|.  n spans
+    one tile, a ragged 16 and 151 tiles with a ragged tail of 37."""
+    args = _head_args(n, coarse, cuda, Ks=Ks, offset=offset)
     before = fused_fc0.launches
     got = fused_fc0.fused_stack_head(*args)
     torch.cuda.synchronize()
