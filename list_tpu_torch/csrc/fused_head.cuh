@@ -34,12 +34,25 @@
 //
 // Shared memory at ktot = 832 (K1): staged tile 64 x 840 bf16 (107,520 B,
 // reused for h2) + h1 64 x 520 (66,560 B, reused for h3) + the ring,
-// KS x S = 32 x 3 (50,688 B): 224,768 of the 232,448 B a block may have.
-// At ktot = 800 (K4) 220,672 B.  What bounds it now: the per-tile staging
-// and the epilogue's percep/coarse loads are not overlapped with the
-// tensor work (one block per SM, no persistent grid), and mma.sync issues
-// at a fraction of wgmma's rate; wgmma + TMA + a persistent grid are the
-// next step.  Measured times: PERF.md section 6.
+// KS x S = 32 x 3 (50,688 B): 224,768 of the 232,448 B a block may have;
+// at ktot = 800 (K4) 220,672 B.
+//
+// Measured on NVIDIA H100 80GB HBM3, 700.00 W (tools/torch_head_ring.py,
+// CUDA-event medians): K1 at n = 2,097,152 17.86-18.01 ms a launch against
+// 67.89-68.43 ms for the earlier head and 31.4-31.6 ms for the unfused bf16
+// matmul chain; K4 at n = 1,048,576 20.14-20.19 ms (earlier head
+// 40.20-40.50, chain 20.24-20.28).  K1 by ring shape KS x S: 16x2 24.89,
+// 16x4 20.67, 16x6 20.09, 32x2 18.79, 32x3 17.86 ms: depth pays up to about
+// two slices in flight, and at equal bytes in flight 32-row slices beat
+// 16-row ones (half the barriers).  32 x 3 is the deepest 32-row ring that
+// fits.  What still bounds it: the weights still cross L2 -> SM once per
+// 64 queries (about 41 GB a 128^3 grid, about 2.3 TB/s at 17.9 ms, the same
+// rate the earlier head reached with 4x the bytes), the per-slice barrier,
+// and the per-tile staging and percep/coarse loads, which nothing overlaps
+// (one block per SM, no persistent grid); mma.sync issues at a fraction of
+// wgmma's rate.  Halving the weight bytes per query needs 128-row tiles
+// (wgmma, two consumer warpgroups) or TMA multicast across a cluster: the
+// next step, with a persistent grid.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -3,7 +3,7 @@
 several shapes of their shared weight ring.
 
     python3 tools/torch_head_ring.py [--rings 32x3,16x2,16x4]
-        [--csrc DIR --label NAME] [--n 2097152] [--report out.json]
+        [--csrc DIR --label NAME] [--report out.json]
 
 Run from the repository root.  Each ring ``KSxS`` (KS weight rows a slice,
 S slices; ``csrc/fused_head.cuh``) builds ``csrc/fused_stack_head.cu`` and
@@ -54,7 +54,6 @@ def main():
     ap.add_argument('--csrc', default=None,
                     help='kernel sources to build (default: this tree\'s)')
     ap.add_argument('--label', default='ring')
-    ap.add_argument('--n', type=int, default=128 ** 3)
     ap.add_argument('--report', default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -87,9 +86,9 @@ def main():
         for r in rings + rings[:1]:
             for name in HEADS:
                 build._libs[name] = libs[r, name]
-            k1 = chip_smoke.head_phase(dev, fused_fc0, args.n)
+            k1 = chip_smoke.head_phase(dev, fused_fc0, 128 ** 3)
             torch.cuda.empty_cache()
-            k4 = chip_smoke.mlp_phase(dev, fused_fc0, args.n // 2)
+            k4 = chip_smoke.mlp_phase(dev, fused_fc0, 64 * 128 ** 2)
             torch.cuda.empty_cache()
             run = dict(label=args.label, ks=r[0], stages=r[1], card=card,
                        k1_ms=k1['ms'], k1_library_ms=k1['library_ms'],
