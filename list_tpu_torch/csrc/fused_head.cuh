@@ -37,15 +37,16 @@
 // KS x S = 32 x 3 (50,688 B): 224,768 of the 232,448 B a block may have;
 // at ktot = 800 (K4) 220,672 B.
 //
-// Measured on NVIDIA H100 80GB HBM3, 700.00 W (tools/torch_head_ring.py,
-// CUDA-event medians): K1 at n = 2,097,152 17.86-18.01 ms a launch against
-// 67.89-68.43 ms for the earlier head and 31.4-31.6 ms for the unfused bf16
-// matmul chain; K4 at n = 1,048,576 20.14-20.19 ms (earlier head
-// 40.20-40.50, chain 20.24-20.28).  K1 by ring shape KS x S: 16x2 24.89,
-// 16x4 20.67, 16x6 20.09, 32x2 18.79, 32x3 17.86 ms: depth pays up to about
-// two slices in flight, and at equal bytes in flight 32-row slices beat
-// 16-row ones (half the barriers).  32 x 3 is the deepest 32-row ring that
-// fits.  What still bounds it: the weights still cross L2 -> SM once per
+// Measured on NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py's kernel
+// phase, CUDA-event medians): K1 at n = 2,097,152 17.41-18.01 ms a launch
+// against 67.89-68.43 ms for the earlier head and 31.4-31.6 ms for the
+// unfused bf16 matmul chain; K4 at n = 1,048,576 19.74-20.19 ms (earlier
+// head 40.19-40.50, chain 20.04-20.28).  With KS and S changed below, K1
+// by ring shape KS x S: 16x2 24.89, 16x4 20.67, 16x6 20.09, 32x2 18.79,
+// 32x3 17.86 ms: depth pays up to about two slices in flight, and at equal
+// bytes in flight 32-row slices beat 16-row ones (half the barriers).
+// 32 x 3 is the deepest 32-row ring that fits.  What still bounds it: the
+// weights still cross L2 -> SM once per
 // 64 queries (about 41 GB a 128^3 grid, about 2.3 TB/s at 17.9 ms, the same
 // rate the earlier head reached with 4x the bytes), the per-slice barrier,
 // and the per-tile staging and percep/coarse loads, which nothing overlaps
@@ -59,15 +60,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// The ring's shape: KS weight rows a slice, S slices (a build may override
-// both, e.g. -DFUSED_HEAD_KS=16 -DFUSED_HEAD_STAGES=4).
-#ifndef FUSED_HEAD_KS
-#define FUSED_HEAD_KS 32
-#endif
-#ifndef FUSED_HEAD_STAGES
-#define FUSED_HEAD_STAGES 3
-#endif
-
 namespace fused_head {
 
 constexpr int TM = 64;   // queries per block
@@ -77,8 +69,8 @@ constexpr int D1 = 512, D2 = 256, D3 = 256;
 constexpr int LD1 = D1 + 8, LD2 = D2 + 8, LD3 = D3 + 8;  // padded smem rows
 constexpr int NC = 256;       // output columns of one pass
 constexpr int LDR = NC + 8;   // ring row stride
-constexpr int KS = FUSED_HEAD_KS;
-constexpr int S = FUSED_HEAD_STAGES;
+constexpr int KS = 32;        // weight rows a ring slice
+constexpr int S = 3;          // ring slices
 constexpr long long MAX_SMEM = 232448;
 static_assert(KS % 16 == 0 && KS % NW == 0 && D2 % KS == 0 && D3 % KS == 0,
               "a ring slice is a multiple of 16 rows, 8 warps and W2/W3");
