@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import os
 import zipfile
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -46,9 +46,13 @@ def save_checkpoint(epoch: int, model: torch.nn.Module, bestloss: float,
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str, model: torch.nn.Module) -> Tuple[int, float]:
+def load_checkpoint(path: str, model: torch.nn.Module,
+                    with_step: bool = False
+                    ) -> Union[Tuple[int, float], Tuple[int, float, int]]:
     """Load a JAX-package or torch-format checkpoint's weights into
-    ``model`` in place (strict) -> (epoch, bestloss)."""
+    ``model`` in place (strict) -> (epoch, bestloss), or with
+    ``with_step`` (epoch, bestloss, step): the saved optimizer step, 0
+    where the file has none (as the JAX package restores it)."""
     if zipfile.is_zipfile(path):
         payload = torch.load(path, map_location='cpu', weights_only=True)
         model.load_state_dict(payload['state_dict'], strict=True)
@@ -56,4 +60,8 @@ def load_checkpoint(path: str, model: torch.nn.Module) -> Tuple[int, float]:
         with open(path, 'rb') as f:
             payload = flax_msgpack.msgpack_restore(f.read())
         load_flax_variables(model, payload['state_dict'])
-    return int(payload['epoch']), float(payload.get('bestloss', 1e7))
+    epoch, bestloss = int(payload['epoch']), float(payload.get('bestloss',
+                                                               1e7))
+    if with_step:
+        return epoch, bestloss, int(payload.get('step', 0))
+    return epoch, bestloss

@@ -190,6 +190,25 @@ def test_checkpoint_readers(sweep):
         torch.testing.assert_close(c.state_dict()[k], v, rtol=0, atol=0)
 
 
+def test_checkpoint_step_is_restored_from_both_formats(sweep):
+    """The saved optimizer step reads back from the JAX package's .ckpt
+    (list_tpu's save_checkpoint of a state at step 7; list_tpu's
+    load_checkpoint restores the same 7) and from the port's torch
+    format; without ``with_step`` the callers keep (epoch, bestloss)."""
+    tcfg, jstate = sweep['tcfg'], sweep['jex'].state.replace(step=7)
+    jpath = os.path.join(sweep['root'], 'step7.ckpt')
+    j_checkpoints.save_checkpoint(2, jstate, 0.75, jpath, include_opt=False)
+    assert j_checkpoints.load_checkpoint(jpath, sweep['jex'].state,
+                                         restore_opt=False)[1].step == 7
+    m = LIST.from_config(tcfg)
+    assert load_checkpoint(jpath, m, with_step=True) == (3, 0.75, 7)
+    tpath = os.path.join(sweep['root'], 'step7_port.ckpt')
+    save_checkpoint(2, m, 0.75, tpath, step=7)
+    assert load_checkpoint(tpath, LIST.from_config(tcfg),
+                           with_step=True) == (3, 0.75, 7)
+    assert load_checkpoint(tpath, LIST.from_config(tcfg)) == (3, 0.75)
+
+
 def _same_tree(got, ref):
     if isinstance(ref, dict):
         assert isinstance(got, dict) and set(got) == set(ref)
