@@ -15,21 +15,31 @@
 // so the result matches the f32 reference.
 //
 // Design.  Blocks run in no order on Hopper, so the TPU's carried sum
-// becomes a deterministic two-pass reduction with no float atomics:
+// becomes a deterministic two-pass reduction with no float atomics.
 //
-// Pass 1 (dk_partial_kernel): block k walks a fixed range of output rows
-// (b, z, y).  For each row it stages in shared memory the nine zero-padded
-// input rows (z-1..z+1, y-1..y+1) of every input channel and the row of g
-// (stored voxel-major, [x][o], so one float4 broadcast load gives four
-// output channels).  Thread (group, segment) owns the 3 x CO outputs of one
-// (i, dz, dy) group -- the three dx taps for every output channel -- and
-// slides a three-value register window along its segment of the row: one
-// shared-memory load of x and CO/4 broadcast loads of g feed 3*CO FMAs.
-// Row stride in shared memory is odd, so the 32 groups of a warp hit 32
-// different banks.  At 16 -> 16 a block is 144 threads (one segment); at
-// Ci = 1 the nine groups split the row into 16 segments, and the segments'
-// sums are added in a fixed order in shared memory.  The block writes its
-// Co*Ci*27 partial sums to a scratch row.
+// Pass 1 (dk_partial_kernel): block (k, c) owns up to kCiBlock input
+// channels (c) and a fixed range of output rows (k), ordered so that a
+// block walks one column (b, y, 128-wide x tile) down z.  Each z step
+// stages in shared memory one new zero-padded input plane of the column
+// (rows y-1..y+1 of every owned channel, with the x halo) and one plane of
+// g (stored voxel-major, [x][o], so one float4 broadcast load gives four
+// output channels), so every input value comes from L2 three times (its
+// three y rows), not nine.  The planes sit in a ring: the three x planes a
+// step reads, and kAhead steps staged ahead with cp.async groups while the
+// FMAs run on the current one, behind one barrier a step.  Zero padding is
+// the copies' zero fill, so the FMA loop has no bounds checks, and no
+// element index is divided (carried row/column counters).  Thread (group,
+// segment) owns the 3 x CO outputs of one (i, dz, dy) group -- the three dx
+// taps for every output channel -- and slides a three-value register window
+// along its segment of the row: one shared-memory load of x and CO/4
+// broadcast loads of g feed 3*CO FMAs.  The x rows have an odd stride, so
+// the 32 groups of a warp read 32 banks; that puts them off 16-byte
+// alignment, so x is staged with 4-byte copies (one x value feeds 3*CO
+// FMAs, so the copies are few beside them).  The g rows' stride puts the
+// 8 x 4 (x, o) elements a warp stages on 32 banks.  Two 288-thread blocks
+// fit on an SM at 16 -> 16 (18 warps).  At the end the segments' sums are
+// added in a fixed order in shared memory and the block writes its partial
+// sums to its scratch row.
 //
 // Pass 2 (dk_reduce_kernel): 8 warps per 32 outputs sum the scratch rows
 // in a fixed order (coalesced across outputs), then add the 8 warp sums in
@@ -39,55 +49,91 @@
 
 namespace {
 
-constexpr int kMaxSmem = 227 * 1024;
-constexpr int kThreadsTarget = 144;
+constexpr int kThreads = 288;           // 9 warps
+constexpr int kCiBlock = 8;             // input channels a block
+constexpr int kTileW = 128;             // output columns a tile
+constexpr int kAhead = 2;               // steps staged ahead of the one computed
+constexpr int kXSlots = kAhead + 3;     // x planes z-1, z, z+1 and those ahead
+constexpr int kGSlots = kAhead + 1;
+constexpr int kRowStride = kTileW + 3;  // odd, >= kTileW + 2
+constexpr int kSmemPerSm = 233472;      // shared memory of an SM (228 KB)
+constexpr int kSmemReserved = 1024;     // reserved per block
 
-struct Plan {
-  int groups;    // 9 * Ci
-  int nseg;      // row segments per group
-  int rs;        // shared-memory row stride (odd, >= W + 2)
-  int gs_off;    // float offset of the g tile (multiple of 4)
-  size_t smem;   // dynamic shared memory bytes
+static_assert(kThreads % 32 == 0 && kThreads >= 9 * kCiBlock, "");
+static_assert(kRowStride % 2 == 1 && kRowStride >= kTileW + 2, "");
+static_assert(kTileW % 8 == 0, "g is staged in 8-column chunks");
+
+template <int CO>
+struct Tile {
+  // g tile row stride: a multiple of 4 (float4 loads) that puts 8 columns
+  // x 4 channels on 32 banks
+  static constexpr int kGStride = CO % 8 == 0 ? CO + 4 : CO;
+  static constexpr int kGSlot = kTileW * kGStride;
+  static constexpr int kOGroup = CO >= 4 ? 4 : 1;  // channels a staging chunk
+  static constexpr int kChunkLanes = 8 * kOGroup;  // 8 columns x kOGroup
+  static_assert(CO % kOGroup == 0 && kThreads % kChunkLanes == 0, "");
+  static_assert(CO == 1 || kGStride % 4 == 0, "");
+
+  static size_t smem_bytes(int cin) {
+    const size_t tiles = (size_t)kGSlots * kGSlot +
+                         (size_t)kXSlots * 3 * cin * kRowStride;
+    const size_t red = (size_t)kThreads * 3 * CO;
+    return (tiles > red ? tiles : red) * sizeof(float);
+  }
 };
 
-Plan make_plan(int Ci, int co_pad, int W) {
-  Plan p;
-  p.groups = 9 * Ci;
-  p.nseg = kThreadsTarget / p.groups;
-  if (p.nseg < 1) p.nseg = 1;
-  if (p.nseg > W) p.nseg = W;
-  p.rs = (W + 2) | 1;
-  p.gs_off = ((p.groups * p.rs + 3) / 4) * 4;
-  const size_t tiles = (size_t)p.gs_off + (size_t)W * co_pad;
-  const size_t red = (size_t)p.groups * p.nseg * 3 * co_pad;
-  p.smem = (tiles > red ? tiles : red) * sizeof(float);
-  return p;
+// two blocks an SM at the widest shape (16 -> 16: 8 channels a block)
+static_assert(2 * ((kGSlots * Tile<16>::kGSlot +
+                    kXSlots * 3 * kCiBlock * kRowStride) * 4 +
+                   kSmemReserved) <= kSmemPerSm, "");
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
 }
 
-// at most kThreadsTarget threads: nseg = kThreadsTarget / (9 * Ci) >= 1
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows r = ((b * H + y) * ntw + tw) * D + z; grid (blocks, Ci chunks)
 template <int CO>
-__global__ void __launch_bounds__(kThreadsTarget)
+__global__ void __launch_bounds__(kThreads, 2)
 dk_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
                   float* __restrict__ partial, int Ci, int Co, int D, int H,
-                  int W, int rows, int rows_per_block, int nseg, int rs,
-                  int gs_off) {
+                  int W, int ntw, int rows, int rows_per_block) {
+  using T = Tile<CO>;
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [9*Ci][rs]
-  float* gs = xs + gs_off;                      // [W][CO]
-  const int G = 9 * Ci;
-  const int nthreads = G * nseg;
+  float* gs = reinterpret_cast<float*>(smem4);  // [kGSlots][kTileW][kGStride]
+  float* xs = gs + kGSlots * T::kGSlot;         // [kXSlots][cin * 3][kRowStride]
+  const int c0 = blockIdx.y * kCiBlock;
+  const int cin = min(kCiBlock, Ci - c0);
+  const int rows_x = 3 * cin;  // x rows of a plane: i * 3 + dy
+  const int xslot = rows_x * kRowStride;
+  const int G = 9 * cin;
+  const int nseg = kThreads / G;
   const int tid = threadIdx.x;
-  const int grp = tid % G;  // (dz * 3 + dy) * Ci + i
-  const int seg = tid / G;
-  const int seg_len = (W + nseg - 1) / nseg;
-  const int x_begin = seg * seg_len;
-  const int x_end = min(W, x_begin + seg_len);
+  const int seg = tid / G;  // nseg: an idle thread
+  const int grp = tid - seg * G;  // (dz * cin + i) * 3 + dy
+  const int dz = grp / rows_x;
+  const int xrow = (grp - dz * rows_x) * kRowStride;
   const size_t plane = (size_t)H * W;
   const size_t vol = plane * D;
-
-  // padded output channels of the g tile stay zero
-  if (CO != Co)
-    for (int idx = tid; idx < W * CO; idx += nthreads) gs[idx] = 0.f;
+  // g staging: chunk lanes (xi, oi), chunks of 8 columns x kOGroup channels
+  const int sub = tid % T::kChunkLanes;
+  const int xi = sub & 7;
+  const int oi = sub >> 3;
+  const int q0 = tid / T::kChunkLanes;
+  constexpr int kQStep = kThreads / T::kChunkLanes;
+  constexpr int kOGroups = CO / T::kOGroup;
 
   float acc[3][CO];
 #pragma unroll
@@ -97,76 +143,139 @@ dk_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
   const int r0 = blockIdx.x * rows_per_block;
   const int r1 = min(rows, r0 + rows_per_block);
-  for (int r = r0; r < r1; ++r) {
-    const int y = r % H;
-    const int bz = r / H;
-    const int z = bz % D;
-    const int b = bz / D;
-    __syncthreads();  // the previous row's reads are done
-    for (int idx = tid; idx < G * (W + 2); idx += nthreads) {
-      const int row = idx / (W + 2);
-      const int c = idx - row * (W + 2);
-      const int i = row % Ci;
-      const int t9 = row / Ci;
-      const int zz = z + t9 / 3 - 1;
-      const int yy = y + t9 % 3 - 1;
-      const int xx = c - 1;
-      float v = 0.f;
-      if (zz >= 0 && zz < D && yy >= 0 && yy < H && xx >= 0 && xx < W)
-        v = __ldg(x + ((size_t)b * Ci + i) * vol + (size_t)zz * plane +
-                  (size_t)yy * W + xx);
-      xs[row * rs + c] = v;
-    }
-    for (int idx = tid; idx < Co * W; idx += nthreads) {
-      const int o = idx / W;
-      const int xx = idx - o * W;
-      gs[xx * CO + o] = __ldg(g + ((size_t)b * Co + o) * vol +
-                              (size_t)z * plane + (size_t)y * W + xx);
-    }
-    __syncthreads();
-    if (x_begin < x_end) {
-      const float* xr = xs + grp * rs + x_begin;
-      float a0 = xr[0];
-      float a1 = xr[1];
-      for (int xx = x_begin; xx < x_end; ++xx) {
-        const float a2 = xr[xx - x_begin + 2];
-        const float* gp = gs + xx * CO;
-        if constexpr (CO % 4 == 0) {
-#pragma unroll
-          for (int o = 0; o < CO; o += 4) {
-            const float4 q = *reinterpret_cast<const float4*>(gp + o);
-            acc[0][o] = fmaf(a0, q.x, acc[0][o]);
-            acc[0][o + 1] = fmaf(a0, q.y, acc[0][o + 1]);
-            acc[0][o + 2] = fmaf(a0, q.z, acc[0][o + 2]);
-            acc[0][o + 3] = fmaf(a0, q.w, acc[0][o + 3]);
-            acc[1][o] = fmaf(a1, q.x, acc[1][o]);
-            acc[1][o + 1] = fmaf(a1, q.y, acc[1][o + 1]);
-            acc[1][o + 2] = fmaf(a1, q.z, acc[1][o + 2]);
-            acc[1][o + 3] = fmaf(a1, q.w, acc[1][o + 3]);
-            acc[2][o] = fmaf(a2, q.x, acc[2][o]);
-            acc[2][o + 1] = fmaf(a2, q.y, acc[2][o + 1]);
-            acc[2][o + 2] = fmaf(a2, q.z, acc[2][o + 2]);
-            acc[2][o + 3] = fmaf(a2, q.w, acc[2][o + 3]);
-          }
-        } else {
-#pragma unroll
-          for (int o = 0; o < CO; ++o) {
-            const float q = gp[o];
-            acc[0][o] = fmaf(a0, q, acc[0][o]);
-            acc[1][o] = fmaf(a1, q, acc[1][o]);
-            acc[2][o] = fmaf(a2, q, acc[2][o]);
-          }
+  for (int r = r0; r < r1;) {
+    // the column (b, y, x tile) of row r and its z run [z0, z0 + n)
+    const int z0 = r % D;
+    const int col = r / D;
+    const int n = min(r1 - r, D - z0);
+    r += n;
+    const int by = col / ntw;
+    const int xw0 = (col - by * ntw) * kTileW;
+    const int b = by / H;
+    const int y = by - b * H;
+    const int txn = min(kTileW, W - xw0);
+    // x staging: element (row, c) of rows_x x (txn + 2), carried counters
+    const int ncols = txn + 2;
+    const int xr0 = tid / ncols;
+    const int xc0 = tid - xr0 * ncols;
+    const int xdr = kThreads / ncols;
+    const int xdc = kThreads - xdr * ncols;
+    const float* xsrc = x + ((size_t)b * Ci + c0) * vol;
+    // g staging: chunk (og, xo) of kOGroups x nxo, carried counters
+    const int nxo = (txn + 7) / 8;
+    const int go0 = q0 / nxo;
+    const int gx0 = q0 - go0 * nxo;
+    const int gdo = kQStep / nxo;
+    const int gdx = kQStep - gdo * nxo;
+    const float* gsrc = g + (size_t)b * Co * vol + (size_t)y * W + xw0;
+    // this thread's segment of the tile
+    const int seg_len = (txn + nseg - 1) / nseg;
+    const int x_begin = min(txn, seg * seg_len);
+    const int len = min(txn, x_begin + seg_len) - x_begin;
+
+    auto stage_x = [&](int zz, int slot) {
+      float* dst = xs + slot * xslot;
+      const bool zok = zz >= 0 && zz < D;
+      const float* src = xsrc + (size_t)(zok ? zz : 0) * plane;
+      int row = xr0, c = xc0;
+      while (row < rows_x) {
+        const int ip = row / 3;
+        const int yy = y + row - 3 * ip - 1;
+        const int gx = xw0 - 1 + c;
+        const bool ok = zok && yy >= 0 && yy < H && gx >= 0 && gx < W;
+        cp_async4(dst + row * kRowStride + c,
+                  ok ? src + ip * vol + (size_t)yy * W + gx : x, ok);
+        c += xdc;
+        row += xdr;
+        if (c >= ncols) {
+          c -= ncols;
+          ++row;
         }
-        a0 = a1;
-        a1 = a2;
+      }
+    };
+    auto stage_g = [&](int zz, int slot) {
+      float* dst = gs + slot * T::kGSlot;
+      const float* src = gsrc + (size_t)zz * plane;
+      int og = go0, xo = gx0;
+      while (og < kOGroups) {
+        const int xx = xo * 8 + xi;
+        const int o = og * T::kOGroup + oi;
+        if (xx < txn)
+          cp_async4(dst + xx * T::kGStride + o,
+                    o < Co ? src + (size_t)o * vol + xx : g, o < Co);
+        xo += gdx;
+        og += gdo;
+        if (xo >= nxo) {
+          xo -= nxo;
+          ++og;
+        }
+      }
+    };
+    auto stage = [&](int k) {  // step k's x plane z0 + k + 1 and g plane
+      if (k < n) {
+        stage_x(z0 + k + 1, (k + 2) % kXSlots);
+        stage_g(z0 + k, k % kGSlots);
+      }
+      cp_async_commit();  // one group a step, empty past the run
+    };
+
+    __syncthreads();  // the previous run's reads are done
+    stage_x(z0 - 1, 0);
+    stage_x(z0, 1);
+#pragma unroll
+    for (int k = 0; k < kAhead; ++k) stage(k);
+    for (int k = 0; k < n; ++k) {
+      cp_async_wait<kAhead - 1>();  // step k's group has landed
+      __syncthreads();              // ... for every thread; step k-1 is done
+      stage(k + kAhead);            // into the slots step k-1 read
+      if (len > 0) {
+        const float* xr = xs + ((k + dz) % kXSlots) * xslot + xrow + x_begin;
+        const float* gp =
+            gs + (k % kGSlots) * T::kGSlot + x_begin * T::kGStride;
+        float a0 = xr[0];
+        float a1 = xr[1];
+#pragma unroll 2
+        for (int xx = 0; xx < len; ++xx) {
+          const float a2 = xr[xx + 2];
+          const float* q4 = gp + xx * T::kGStride;
+          if constexpr (CO % 4 == 0) {
+#pragma unroll
+            for (int o = 0; o < CO; o += 4) {
+              const float4 q = *reinterpret_cast<const float4*>(q4 + o);
+              acc[0][o] = fmaf(a0, q.x, acc[0][o]);
+              acc[0][o + 1] = fmaf(a0, q.y, acc[0][o + 1]);
+              acc[0][o + 2] = fmaf(a0, q.z, acc[0][o + 2]);
+              acc[0][o + 3] = fmaf(a0, q.w, acc[0][o + 3]);
+              acc[1][o] = fmaf(a1, q.x, acc[1][o]);
+              acc[1][o + 1] = fmaf(a1, q.y, acc[1][o + 1]);
+              acc[1][o + 2] = fmaf(a1, q.z, acc[1][o + 2]);
+              acc[1][o + 3] = fmaf(a1, q.w, acc[1][o + 3]);
+              acc[2][o] = fmaf(a2, q.x, acc[2][o]);
+              acc[2][o + 1] = fmaf(a2, q.y, acc[2][o + 1]);
+              acc[2][o + 2] = fmaf(a2, q.z, acc[2][o + 2]);
+              acc[2][o + 3] = fmaf(a2, q.w, acc[2][o + 3]);
+            }
+          } else {
+#pragma unroll
+            for (int o = 0; o < CO; ++o) {
+              const float q = q4[o];
+              acc[0][o] = fmaf(a0, q, acc[0][o]);
+              acc[1][o] = fmaf(a1, q, acc[1][o]);
+              acc[2][o] = fmaf(a2, q, acc[2][o]);
+            }
+          }
+          a0 = a1;
+          a1 = a2;
+        }
       }
     }
   }
 
   // add the segments' sums in a fixed order; write this block's partials
+  cp_async_wait<0>();
   __syncthreads();
-  float* red = xs;  // [nseg][G][3 * CO]
-  {
+  float* red = reinterpret_cast<float*>(smem4);  // [nseg][G][3 * CO]
+  if (seg < nseg) {
     float* mine = red + ((size_t)seg * G + grp) * 3 * CO;
 #pragma unroll
     for (int d = 0; d < 3; ++d)
@@ -174,9 +283,8 @@ dk_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
       for (int o = 0; o < CO; ++o) mine[d * CO + o] = acc[d][o];
   }
   __syncthreads();
-  const int nout = Co * Ci * 27;
-  float* out = partial + (size_t)blockIdx.x * nout;
-  for (int j = tid; j < G * 3 * Co; j += nthreads) {
+  float* out = partial + (size_t)blockIdx.x * Co * Ci * 27;
+  for (int j = tid; j < G * 3 * Co; j += kThreads) {
     const int o = j % Co;
     const int t = j / Co;
     const int d = t % 3;
@@ -184,9 +292,11 @@ dk_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
     float s = 0.f;
     for (int s2 = 0; s2 < nseg; ++s2)
       s += red[((size_t)s2 * G + gi) * 3 * CO + d * CO + o];
-    const int i = gi % Ci;
-    const int t9 = gi / Ci;  // dz * 3 + dy
-    out[(o * Ci + i) * 27 + t9 * 3 + d] = s;
+    const int dy = gi % 3;
+    const int di = gi / 3;  // dz * cin + i
+    const int i = di % cin;
+    const int tz = di / cin;
+    out[(o * Ci + c0 + i) * 27 + (tz * 3 + dy) * 3 + d] = s;
   }
 }
 
@@ -215,19 +325,19 @@ template <int CO>
 int launch(const float* x, const float* g, float* dk, float* partial,
            int nblk, int B, int Ci, int Co, int D, int H, int W,
            cudaStream_t stream) {
-  const Plan p = make_plan(Ci, CO, W);
-  if (p.smem > (size_t)kMaxSmem) return -1;
-  if (p.smem > 48 * 1024) {
+  const size_t smem = Tile<CO>::smem_bytes(Ci < kCiBlock ? Ci : kCiBlock);
+  if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         dk_partial_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)p.smem);
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int rows = B * D * H;
+  const int ntw = (W + kTileW - 1) / kTileW;
+  const int rows = B * H * ntw * D;
   const int rows_per_block = (rows + nblk - 1) / nblk;
-  dk_partial_kernel<CO><<<nblk, p.groups * p.nseg, p.smem, stream>>>(
-      x, g, partial, Ci, Co, D, H, W, rows, rows_per_block, p.nseg, p.rs,
-      p.gs_off);
+  const dim3 grid(nblk, (Ci + kCiBlock - 1) / kCiBlock);
+  dk_partial_kernel<CO><<<grid, kThreads, smem, stream>>>(
+      x, g, partial, Ci, Co, D, H, W, ntw, rows, rows_per_block);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int nout = Co * Ci * 27;
@@ -246,7 +356,8 @@ extern "C" int conv3x3x3_dk_f32(const void* x, const void* g, void* dk,
                                 void* partial, int nblk, int B, int Ci,
                                 int Co, int D, int H, int W, void* stream) {
   if (B < 1 || Ci < 1 || Ci > 16 || Co < 1 || Co > 16 || D < 1 || H < 1 ||
-      W < 1 || nblk < 1 || (long long)B * D * H > 0x7fffffffLL)
+      W < 1 || nblk < 1 ||
+      (long long)B * D * H * ((W + kTileW - 1) / kTileW) > 0x7fffffffLL)
     return -1;
   const int co_pad = Co == 1 ? 1 : ((Co + 3) / 4) * 4;
   auto s = static_cast<cudaStream_t>(stream);

@@ -38,15 +38,28 @@ def test_conv3x3x3_kernel_matches_plain(cuda, ci, co, dhw):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize('ci,co,dhw', [(1, 1, (5, 7, 33)),
-                                       (1, 16, (4, 9, 40)),
-                                       (16, 16, (3, 8, 128)),
-                                       (16, 1, (3, 5, 9)),
-                                       (3, 5, (4, 8, 17))])
-def test_conv3x3x3_dk_kernel_matches_plain(cuda, ci, co, dhw):
+# (ci, co, dhw, blocks): every Ci x Co of {1, 3, 16} x {1, 5, 12, 16} (one
+# or two 8-channel blocks; Co padded to 1, 8, 12, 16), W ragged against the
+# 128-wide tile (33, 40, 127), a full tile (128) and a second tile (130);
+# ``blocks`` overrides DK_BLOCKS so a block walks z-runs that start and end
+# inside a column and cross into the next (default: one row a block here)
+DK_CASES = [(1, 1, (5, 7, 33), None), (1, 16, (4, 9, 40), None),
+            (16, 16, (3, 8, 128), None), (16, 1, (3, 5, 9), None),
+            (3, 5, (4, 8, 17), None), (1, 1, (7, 3, 127), 5),
+            (1, 5, (6, 5, 130), 7), (1, 12, (5, 3, 128), 4),
+            (3, 1, (9, 2, 40), 3), (3, 12, (4, 5, 33), None),
+            (3, 16, (6, 3, 127), 5), (16, 5, (5, 3, 130), 3),
+            (16, 12, (3, 4, 40), None), (16, 16, (11, 3, 127), 4)]
+
+
+@pytest.mark.parametrize('ci,co,dhw,blocks', DK_CASES)
+def test_conv3x3x3_dk_kernel_matches_plain(cuda, monkeypatch, ci, co, dhw,
+                                           blocks):
     """K3 against conv3x3x3_dk_plain: f32 FMAs on both sides, sums of
     B*D*H*W products in another order: |K3 - plain| <= 1e-4 * max|plain|.
     Its reduction is deterministic: two runs give bit-identical dk."""
+    if blocks is not None:
+        monkeypatch.setattr(stencil3d, 'DK_BLOCKS', blocks)
     g_ = torch.Generator(device='cpu').manual_seed(ci * 13 + co)
     x = torch.rand(2, ci, *dhw, generator=g_).to(cuda)
     g = torch.randn(2, co, *dhw, generator=g_).to(cuda)
