@@ -10,112 +10,277 @@
 // bound by f32 operations outside the tensor cores (about 0.43 ms at
 // 67 TFLOP/s); at 1 -> 1 and 1 -> 16 it is bound by memory bytes.
 //
-// Design: one thread per output voxel computes all CO <= 16 output
-// channels, so every input value it loads feeds CO FMAs; neighbouring
-// threads run along W, so the 27 tap loads of a warp are coalesced and the
-// overlapping taps hit L1.  The weights (at most 27*16*16 floats = 27.6 KB)
-// sit in shared memory as [ci][tap][CO], read as broadcast float4s.  Zero
-// padding is a bounds check on each tap.  Plain f32 FMAs, no TF32.
+// Design.  A 256-thread block owns an output tile: one (b, z), TY rows
+// (8, 16 or 32 as CO is 16/12, 8 or 4/1) and a 128-wide run of W.  It
+// stages the zero-padded input tile with its halo -- the three planes
+// z-1..z+1, TY + 2 rows, 130 columns -- for kCiChunk input channels at a
+// time with 4-byte cp.async (zero fill for the halo and the padding, so the
+// FMA loop has no bounds checks; carried row/column counters, no division
+// per element), double-buffered over channel chunks: the next chunk lands
+// while the FMAs run on this one, behind one barrier a chunk.  Warp w owns
+// VY = TY / 8 rows, lane l the four voxels 4l..4l+3 of each: it reads a
+// six-value window of an input row as one float4 and one float2 (lanes on
+// consecutive 16 bytes).  A thread computes 4 * VY voxels x CO channels
+// (64 sums at CO = 16, 8, 4; 48 at 12; 16 at 1), so every broadcast
+// float4 of weights (kept in shared memory as [ci][tap][CO], at most
+// 48 KB) feeds 16 FMAs, four voxels by four channels (the old kernel fed
+// 4); at CO <= 4 a plane's nine taps of weights sit in registers.  At
+// 16 -> 16 a thread issues 42 shared loads per 576 FMAs.  Outputs are
+// stored as float4 along W where a row is 16-byte aligned.  Plain f32
+// FMAs, no TF32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <int CO>
-__global__ void __launch_bounds__(256)
-conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 float* __restrict__ y, int Ci, int Co, int D, int H, int W) {
-  extern __shared__ float4 ws4[];
-  float* ws = reinterpret_cast<float*>(ws4);
-  const int nw = Ci * 27 * CO;
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < nw;
-       i += blockDim.x * blockDim.y) {
-    const int o = i % CO;
-    const int ct = i / CO;  // ci * 27 + tap
-    // torch weight layout (Co, Ci, 3, 3, 3); padded channels are zero
-    ws[i] = o < Co ? w[(size_t)o * Ci * 27 + ct] : 0.f;
-  }
-  __syncthreads();
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kTileW = 128;    // 32 lanes x 4 voxels
+constexpr int kRowStride = kTileW + 4;  // >= kTileW + 2, 16-byte rows
+constexpr int kWeightSmem = 48 * 1024;  // the weights' room, bytes
 
-  const int wi = blockIdx.x * blockDim.x + threadIdx.x;
-  const int hi = blockIdx.y * blockDim.y + threadIdx.y;
-  const int bd = blockIdx.z;  // b * D + d
-  if (wi >= W || hi >= H) return;
-  const int d = bd % D;
-  const int b = bd / D;
+static_assert(kTileW == 32 * 4, "a lane owns four voxels of a row");
+static_assert(kRowStride % 4 == 0 && kRowStride >= kTileW + 2, "");
+
+template <int CO>
+struct Tile {
+  static constexpr int kVY = CO >= 12 ? 1 : (CO == 8 ? 2 : 4);  // rows a warp
+  static constexpr int kTY = kWarps * kVY;                   // rows a tile
+  static constexpr int kRows = kTY + 2;                      // with the halo
+  static constexpr int kCiChunk = CO >= 12 ? 2 : 1;  // channels a stage
+  static constexpr int kPlane = kRows * kRowStride;  // floats of one plane
+  static constexpr int kChunk = kCiChunk * 3 * kPlane;
+  static constexpr bool kWeightsInRegs = CO <= 4;
+  static_assert(CO == 1 || CO % 4 == 0, "");
+  static_assert(kVY * 4 * CO <= 64, "sums a thread");
+
+  static size_t smem_bytes(int Ci) {
+    const size_t w = ((size_t)Ci * 27 * CO + 3) / 4 * 4;
+    return (w + 2 * (size_t)kChunk) * sizeof(float);
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// block = ((b * D + z) * nty + ty) * ntw + tw
+template <int CO>
+__global__ void __launch_bounds__(kThreads, 2)
+conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 float* __restrict__ y, int Ci, int Co, int D, int H, int W,
+                 int nty, int ntw) {
+  using T = Tile<CO>;
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);  // [Ci][27][CO]
+  const int nw = Ci * 27 * CO;
+  float* xs = ws + (nw + 3) / 4 * 4;  // [2][kCiChunk][3][kRows][kRowStride]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  int blk = blockIdx.x;
+  const int tw = blk % ntw;
+  blk /= ntw;
+  const int ty = blk % nty;
+  blk /= nty;
+  const int z = blk % D;
+  const int b = blk / D;
+  const int x0 = tw * kTileW;
+  const int y0 = ty * T::kTY;
+  const int txn = min(kTileW, W - x0);
   const size_t plane = (size_t)H * W;
   const size_t vol = plane * D;
 
-  float acc[CO];
-#pragma unroll
-  for (int o = 0; o < CO; ++o) acc[o] = 0.f;
+  // staging: element (row, c) of nrows x (txn + 2), carried counters;
+  // row = (ci' * 3 + dz) * kRows + ry
+  const int ncols = txn + 2;
+  const int xr0 = tid / ncols;
+  const int xc0 = tid - xr0 * ncols;
+  const int xdr = kThreads / ncols;
+  const int xdc = kThreads - xdr * ncols;
+  const float* xb = x + (size_t)b * Ci * vol;
+  auto stage = [&](int c0, float* dst) {
+    const int nrows = min(T::kCiChunk, Ci - c0) * 3 * T::kRows;
+    int row = xr0, c = xc0;
+    while (row < nrows) {
+      const int cz = row / T::kRows;  // ci' * 3 + dz
+      const int ry = row - cz * T::kRows;
+      const int cc = cz / 3;
+      const int zz = z + cz - cc * 3 - 1;
+      const int yy = y0 + ry - 1;
+      const int gx = x0 - 1 + c;
+      const bool ok = zz >= 0 && zz < D && yy >= 0 && yy < H && gx >= 0 &&
+                      gx < W;
+      cp_async4(dst + row * kRowStride + c,
+                ok ? xb + (size_t)(c0 + cc) * vol + (size_t)zz * plane +
+                         (size_t)yy * W + gx
+                   : x,
+                ok);
+      c += xdc;
+      row += xdr;
+      if (c >= ncols) {
+        c -= ncols;
+        ++row;
+      }
+    }
+  };
 
-  for (int c = 0; c < Ci; ++c) {
-    const float* xc = x + ((size_t)b * Ci + c) * vol;
-    const float* wc = ws + c * 27 * CO;
+  // the weights, torch layout (Co, Ci, 3, 3, 3) -> [ci][tap][CO], padded
+  // channels zero; they join the first chunk's group
+  for (int i = tid; i < nw; i += kThreads) {
+    const int o = i % CO;
+    const int ct = i / CO;  // ci * 27 + tap
+    cp_async4(ws + i, o < Co ? w + (size_t)o * Ci * 27 + ct : w, o < Co);
+  }
+
+  float acc[T::kVY][4][CO];
 #pragma unroll
-    for (int dz = 0; dz < 3; ++dz) {
-      const int zz = d + dz - 1;
-      const bool zok = zz >= 0 && zz < D;
+  for (int v = 0; v < T::kVY; ++v)
 #pragma unroll
-      for (int dy = 0; dy < 3; ++dy) {
-        const int yy = hi + dy - 1;
-        const bool yok = zok && yy >= 0 && yy < H;
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) {
-          const int xx = wi + dx - 1;
-          const float v = (yok && xx >= 0 && xx < W)
-                              ? __ldg(xc + (size_t)zz * plane +
-                                      (size_t)yy * W + xx)
-                              : 0.f;
-          const float* wt = wc + ((dz * 3 + dy) * 3 + dx) * CO;
-          if constexpr (CO % 4 == 0) {
+      for (int o = 0; o < CO; ++o) acc[v][j][o] = 0.f;
+
+  const int nchunk = (Ci + T::kCiChunk - 1) / T::kCiChunk;
+  stage(0, xs);
+  cp_async_commit();
+  for (int k = 0; k < nchunk; ++k) {
+    cp_async_wait_all();  // chunk k has landed
+    __syncthreads();      // ... for every thread; chunk k-1 is done
+    if (k + 1 < nchunk) {
+      stage((k + 1) * T::kCiChunk, xs + ((k + 1) & 1) * T::kChunk);
+      cp_async_commit();
+    }
+    const float* buf = xs + (k & 1) * T::kChunk;
+    const int cic = min(T::kCiChunk, Ci - k * T::kCiChunk);
+    for (int cc = 0; cc < cic; ++cc) {
+      const float* wc = ws + (k * T::kCiChunk + cc) * 27 * CO;
 #pragma unroll
-            for (int o = 0; o < CO; o += 4) {
-              const float4 k = *reinterpret_cast<const float4*>(wt + o);
-              acc[o] = fmaf(v, k.x, acc[o]);
-              acc[o + 1] = fmaf(v, k.y, acc[o + 1]);
-              acc[o + 2] = fmaf(v, k.z, acc[o + 2]);
-              acc[o + 3] = fmaf(v, k.w, acc[o + 3]);
+      for (int dz = 0; dz < 3; ++dz) {
+        const float* rows = buf + (cc * 3 + dz) * T::kPlane +
+                            warp * T::kVY * kRowStride + 4 * lane;
+        const float* wz = wc + dz * 9 * CO;
+        float wr[T::kWeightsInRegs ? 9 * CO : 1];
+        if constexpr (T::kWeightsInRegs) {
+#pragma unroll
+          for (int t = 0; t < 9 * CO; ++t) wr[t] = wz[t];
+        }
+#pragma unroll
+        for (int r = 0; r < T::kVY + 2; ++r) {
+          const float4 p = *reinterpret_cast<const float4*>(rows +
+                                                            r * kRowStride);
+          const float2 q = *reinterpret_cast<const float2*>(
+              rows + r * kRowStride + 4);
+          const float v[6] = {p.x, p.y, p.z, p.w, q.x, q.y};
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy) {
+            const int vy = r - dy;
+            if (vy < 0 || vy >= T::kVY) continue;
+#pragma unroll
+            for (int dx = 0; dx < 3; ++dx) {
+              const int t = dy * 3 + dx;
+              if constexpr (T::kWeightsInRegs) {
+#pragma unroll
+                for (int o = 0; o < CO; ++o)
+#pragma unroll
+                  for (int j = 0; j < 4; ++j)
+                    acc[vy][j][o] = fmaf(v[j + dx], wr[t * CO + o],
+                                         acc[vy][j][o]);
+              } else {
+#pragma unroll
+                for (int o = 0; o < CO; o += 4) {
+                  const float4 k4 =
+                      *reinterpret_cast<const float4*>(wz + t * CO + o);
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) {
+                    acc[vy][j][o] = fmaf(v[j + dx], k4.x, acc[vy][j][o]);
+                    acc[vy][j][o + 1] =
+                        fmaf(v[j + dx], k4.y, acc[vy][j][o + 1]);
+                    acc[vy][j][o + 2] =
+                        fmaf(v[j + dx], k4.z, acc[vy][j][o + 2]);
+                    acc[vy][j][o + 3] =
+                        fmaf(v[j + dx], k4.w, acc[vy][j][o + 3]);
+                  }
+                }
+              }
             }
-          } else {
-#pragma unroll
-            for (int o = 0; o < CO; ++o) acc[o] = fmaf(v, wt[o], acc[o]);
           }
         }
       }
     }
   }
-  float* yo = y + (size_t)b * Co * vol + (size_t)d * plane + (size_t)hi * W +
-              wi;
+
+  // store: float4 along W where the row is 16-byte aligned
+  const int xl = 4 * lane;
+  if (xl >= txn) return;
+  const bool vec = (W & 3) == 0 && xl + 4 <= txn;
 #pragma unroll
-  for (int o = 0; o < CO; ++o)
-    if (o < Co) yo[(size_t)o * vol] = acc[o];
+  for (int vy = 0; vy < T::kVY; ++vy) {
+    const int yy = y0 + warp * T::kVY + vy;
+    if (yy >= H) break;
+    float* yo = y + (size_t)b * Co * vol + (size_t)z * plane +
+                (size_t)yy * W + x0 + xl;
+#pragma unroll
+    for (int o = 0; o < CO; ++o) {
+      if (o >= Co) break;
+      float* p = yo + (size_t)o * vol;
+      if (vec) {
+        *reinterpret_cast<float4*>(p) = make_float4(
+            acc[vy][0][o], acc[vy][1][o], acc[vy][2][o], acc[vy][3][o]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (xl + j < txn) p[j] = acc[vy][j][o];
+      }
+    }
+  }
 }
 
 template <int CO>
 int launch(const float* x, const float* w, float* y, int B, int Ci, int Co,
            int D, int H, int W, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((W + 31) / 32, (H + 7) / 8, B * D);
-  const size_t smem = (size_t)Ci * 27 * CO * sizeof(float);
-  conv3x3x3_kernel<CO><<<grid, block, smem, stream>>>(x, w, y, Ci, Co, D, H,
-                                                      W);
+  using T = Tile<CO>;
+  const size_t smem = T::smem_bytes(Ci);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv3x3x3_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int ntw = (W + kTileW - 1) / kTileW;
+  const int nty = (H + T::kTY - 1) / T::kTY;
+  const long long blocks = (long long)B * D * nty * ntw;
+  if (blocks > 0x7fffffffLL) return -1;
+  conv3x3x3_kernel<CO><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      x, w, y, Ci, Co, D, H, W, nty, ntw);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Returns 0 on success, a cudaError_t code from the launch, or -1 for
-// arguments the kernel does not take.
+// arguments the kernel does not take: Co <= 16, Ci * 27 * Co (Co padded to
+// 1 or a multiple of 4) weights in 48 KB, and at most 2^31 - 1 tiles.
 extern "C" int conv3x3x3_f32(const void* x, const void* w, void* y, int B,
                              int Ci, int Co, int D, int H, int W,
                              void* stream) {
-  if (B < 1 || Ci < 1 || Co < 1 || Co > 16 || D < 1 || H < 1 || W < 1 ||
-      (long long)B * D > 65535LL)
+  if (B < 1 || Ci < 1 || Co < 1 || Co > 16 || D < 1 || H < 1 || W < 1)
     return -1;
   const int co_pad = Co == 1 ? 1 : ((Co + 3) / 4) * 4;
-  if ((size_t)Ci * 27 * co_pad * sizeof(float) > 48 * 1024) return -1;
+  if ((size_t)Ci * 27 * co_pad * sizeof(float) > kWeightSmem) return -1;
   auto s = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);

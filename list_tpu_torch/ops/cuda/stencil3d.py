@@ -88,8 +88,11 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if co > 16 or ci * 27 * co_pad * 4 > 48 * 1024:
         raise ValueError(f'conv3x3x3 kernel takes Co <= 16 and a weight '
                          f'block <= 48 KB, got Ci={ci}, Co={co}')
-    if x.shape[0] * x.shape[2] > 65535:
-        raise ValueError('conv3x3x3 kernel takes B*D <= 65535')
+    B, _, D, H, W = x.shape
+    # one block per (b, z, TY rows, 128 columns); TY as csrc/stencil3d.cu
+    ty = 8 * (1 if co_pad >= 12 else 2 if co_pad == 8 else 4)
+    if B * D * -(-H // ty) * -(-W // 128) > 2 ** 31 - 1:
+        raise ValueError('conv3x3x3 kernel takes at most 2^31 - 1 tiles')
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, dx: bool = False

@@ -21,14 +21,25 @@ def cuda():
     return torch.device('cuda')
 
 
-@pytest.mark.parametrize('ci,co,dhw', [(1, 1, (5, 7, 33)),
-                                       (1, 16, (4, 9, 40)),
-                                       (16, 16, (3, 8, 128)),
-                                       (3, 5, (4, 8, 17))])
-def test_conv3x3x3_kernel_matches_plain(cuda, ci, co, dhw):
+# (ci, co, dhw, batch): every Ci x Co of {1, 3, 16} x {1, 5, 12, 16} (Co
+# padded to 1, 8, 12, 16: tiles of 32, 16, 8, 8 rows), H ragged against
+# the tile's rows, W ragged against the 128-wide tile and the four voxels a
+# lane (33, 40, 127, 17), a full tile (128) and a second tile (130), the
+# 16 -> 1 dx shape, and B * D = 65,664 (above the 65,535 of a grid axis)
+CONV_CASES = [(1, 1, (5, 7, 33), 2), (1, 16, (4, 9, 40), 2),
+              (16, 16, (3, 8, 128), 2), (3, 5, (4, 8, 17), 2),
+              (1, 5, (3, 17, 127), 2), (1, 12, (2, 33, 128), 2),
+              (3, 1, (3, 31, 130), 2), (3, 12, (2, 9, 40), 2),
+              (3, 16, (3, 10, 127), 2), (16, 1, (3, 33, 128), 2),
+              (16, 5, (2, 19, 33), 2), (16, 12, (2, 9, 130), 2),
+              (1, 1, (128, 2, 5), 513)]
+
+
+@pytest.mark.parametrize('ci,co,dhw,batch', CONV_CASES)
+def test_conv3x3x3_kernel_matches_plain(cuda, ci, co, dhw, batch):
     """f32 FMAs on both sides, sums in another order: atol = rtol = 1e-4."""
     g = torch.Generator(device='cpu').manual_seed(ci * 31 + co)
-    x = torch.randn(2, ci, *dhw, generator=g).to(cuda)
+    x = torch.randn(batch, ci, *dhw, generator=g).to(cuda)
     w = (torch.randn(co, ci, 3, 3, 3, generator=g) * 0.2).to(cuda)
     before = stencil3d.launches
     got = stencil3d.conv3x3x3(x, w)
@@ -198,6 +209,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
                                            dtype=torch.float64))
     with pytest.raises(TypeError):
         stencil3d.conv3x3x3_dk(x, x)
+    x = x.float()
+    for co, ci in ((17, 1), (16, 29)):  # Co > 16; 50,112 B of weights
+        with pytest.raises(ValueError):
+            stencil3d.conv3x3x3(x.expand(1, ci, 4, 4, 4).contiguous(),
+                                torch.zeros(co, ci, 3, 3, 3, device=cuda))
+    with pytest.raises(ValueError):  # Ci > 16
+        stencil3d.conv3x3x3_dk(x.expand(1, 17, 4, 4, 4).contiguous(), x)
     args = list(_head_args(64, None, cuda))
     args[0] = [p.float() for p in args[0]]
     with pytest.raises(ValueError):
