@@ -15,19 +15,21 @@
 // stages the zero-padded input tile with its halo -- the three planes
 // z-1..z+1, TY + 2 rows, 130 columns -- for kCiChunk input channels at a
 // time with 4-byte cp.async (zero fill for the halo and the padding, so the
-// FMA loop has no bounds checks; carried row/column counters, no division
-// per element), double-buffered over channel chunks: the next chunk lands
-// while the FMAs run on this one, behind one barrier a chunk.  Warp w owns
-// VY = TY / 8 rows, lane l the four voxels 4l..4l+3 of each: it reads a
-// six-value window of an input row as one float4 and one float2 (lanes on
-// consecutive 16 bytes).  A thread computes 4 * VY voxels x CO channels
-// (64 sums at CO = 16, 8, 4; 48 at 12; 16 at 1), so every broadcast
-// float4 of weights (kept in shared memory as [ci][tap][CO], at most
-// 48 KB) feeds 16 FMAs, four voxels by four channels (the old kernel fed
-// 4); at CO <= 4 a plane's nine taps of weights sit in registers.  At
-// 16 -> 16 a thread issues 42 shared loads per 576 FMAs.  Outputs are
-// stored as float4 along W where a row is 16-byte aligned.  Plain f32
-// FMAs, no TF32.
+// FMA loop has no bounds checks; a few threads copy the columns of one
+// staged row, so no element index is divided), double-buffered over
+// channel chunks: the next chunk lands while the FMAs run on this one,
+// behind one barrier a chunk.  Warp w owns VY = TY / 8 rows.  A lane reads
+// six-value windows of an input row as one float4 and one float2 (lanes on
+// consecutive 16 bytes) and computes 4-voxel runs x output channels: at
+// CO = 16 each half-warp takes 8 channels and a lane two runs 64 columns
+// apart (64 sums), else a lane one run and all CO (64 sums at CO = 8, 4;
+// 48 at 12; 16 at 1).  So every broadcast float4 of weights (kept in
+// shared memory as [ci][tap][CO], at most 48 KB; the 8 lanes of a
+// shared-memory phase read one address) feeds 32 FMAs at CO = 16 and 16
+// below; at CO <= 4 a plane's nine taps of weights sit in registers.  The
+// old kernel fed 4 FMAs a weight load and re-read every input 27 times
+// from L1.  Outputs are stored as float4 along W where a row is 16-byte
+// aligned.  Plain f32 FMAs, no TF32.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,11 +37,10 @@ namespace {
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kTileW = 128;    // 32 lanes x 4 voxels
+constexpr int kTileW = 128;    // a row of a warp
 constexpr int kRowStride = kTileW + 4;  // >= kTileW + 2, 16-byte rows
 constexpr int kWeightSmem = 48 * 1024;  // the weights' room, bytes
 
-static_assert(kTileW == 32 * 4, "a lane owns four voxels of a row");
 static_assert(kRowStride % 4 == 0 && kRowStride >= kTileW + 2, "");
 
 template <int CO>
@@ -50,13 +51,24 @@ struct Tile {
   static constexpr int kCiChunk = CO >= 12 ? 2 : 1;  // channels a stage
   static constexpr int kPlane = kRows * kRowStride;  // floats of one plane
   static constexpr int kChunk = kCiChunk * 3 * kPlane;
+  static constexpr int kStagedRows = kCiChunk * 3 * kRows;  // rows a chunk
+  static constexpr int kRowThreads = kThreads / kStagedRows;  // threads a row
   static constexpr bool kWeightsInRegs = CO <= 4;
-  static_assert(CO == 1 || CO % 4 == 0, "");
-  static_assert(kVY * 4 * CO <= 64, "sums a thread");
+  // at CO = 16 the two half-warps take 8 output channels each and a lane
+  // two runs of 4 voxels, 64 columns apart; else a lane one run, all CO
+  static constexpr int kOParts = CO == 16 ? 2 : 1;
+  static constexpr int kNO = CO / kOParts;  // output channels a thread
+  static constexpr int kLanesW = 32 / kOParts;  // lanes along a row
+  static constexpr int kRuns = kTileW / (4 * kLanesW);  // 4-voxel runs
+  static_assert(kRuns * 4 * kLanesW == kTileW, "");
+  static_assert(CO == 1 || kNO % 4 == 0, "");
+  static_assert(kVY * kRuns * 4 * kNO <= 64, "sums a thread");
+  static_assert(kRowThreads >= 1, "");
 
+  // the weights and one chunk buffer, two where there are two chunks
   static size_t smem_bytes(int Ci) {
     const size_t w = ((size_t)Ci * 27 * CO + 3) / 4 * 4;
-    return (w + 2 * (size_t)kChunk) * sizeof(float);
+    return (w + (Ci > kCiChunk ? 2 : 1) * (size_t)kChunk) * sizeof(float);
   }
 };
 
@@ -104,38 +116,32 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const size_t plane = (size_t)H * W;
   const size_t vol = plane * D;
 
-  // staging: element (row, c) of nrows x (txn + 2), carried counters;
-  // row = (ci' * 3 + dz) * kRows + ry
+  // staging: thread (srow, sc0) copies columns sc0, sc0 + kRowThreads, ...
+  // of staged row srow = (ci' * 3 + dz) * kRows + ry of every chunk; the
+  // columns whose source lies inside the volume are [clo, chi]
   const int ncols = txn + 2;
-  const int xr0 = tid / ncols;
-  const int xc0 = tid - xr0 * ncols;
-  const int xdr = kThreads / ncols;
-  const int xdc = kThreads - xdr * ncols;
-  const float* xb = x + (size_t)b * Ci * vol;
+  const int srow = tid / T::kRowThreads;
+  const int sc0 = tid - srow * T::kRowThreads;
+  const int scz = srow / T::kRows;  // ci' * 3 + dz
+  const int sci = scz / 3;
+  const int zz = z + scz - sci * 3 - 1;
+  const int yy = y0 + srow - scz * T::kRows - 1;
+  const bool rok = srow < T::kStagedRows && zz >= 0 && zz < D && yy >= 0 &&
+                   yy < H;
+  const float* xrow_src = x + ((size_t)b * Ci + sci) * vol +
+                          (rok ? (size_t)zz * plane + (size_t)yy * W : 0) +
+                          x0 - 1;
+  const int clo = x0 == 0 ? 1 : 0;
+  const int chi = min(txn + 1, W - x0);
   auto stage = [&](int c0, float* dst) {
-    const int nrows = min(T::kCiChunk, Ci - c0) * 3 * T::kRows;
-    int row = xr0, c = xc0;
-    while (row < nrows) {
-      const int cz = row / T::kRows;  // ci' * 3 + dz
-      const int ry = row - cz * T::kRows;
-      const int cc = cz / 3;
-      const int zz = z + cz - cc * 3 - 1;
-      const int yy = y0 + ry - 1;
-      const int gx = x0 - 1 + c;
-      const bool ok = zz >= 0 && zz < D && yy >= 0 && yy < H && gx >= 0 &&
-                      gx < W;
-      cp_async4(dst + row * kRowStride + c,
-                ok ? xb + (size_t)(c0 + cc) * vol + (size_t)zz * plane +
-                         (size_t)yy * W + gx
-                   : x,
-                ok);
-      c += xdc;
-      row += xdr;
-      if (c >= ncols) {
-        c -= ncols;
-        ++row;
+    const bool ok = rok && c0 + sci < Ci;
+    const float* src = xrow_src + (size_t)c0 * vol;
+    dst += srow * kRowStride;
+    if (srow < T::kStagedRows)
+      for (int c = sc0; c < ncols; c += T::kRowThreads) {
+        const bool in = ok && c >= clo && c <= chi;
+        cp_async4(dst + c, in ? src + c : x, in);
       }
-    }
   };
 
   // the weights, torch layout (Co, Ci, 3, 3, 3) -> [ci][tap][CO], padded
@@ -146,13 +152,20 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
     cp_async4(ws + i, o < Co ? w + (size_t)o * Ci * 27 + ct : w, o < Co);
   }
 
-  float acc[T::kVY][4][CO];
+  // lane (oh, vl): output channels oh * kNO.., voxels 4 vl + kRunW r + j
+  constexpr int kNO = T::kNO;
+  constexpr int kRunW = 4 * T::kLanesW;
+  const int vl = lane % T::kLanesW;
+  const int oh = lane / T::kLanesW;
+  float acc[T::kVY][T::kRuns][4][kNO];
 #pragma unroll
   for (int v = 0; v < T::kVY; ++v)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int r = 0; r < T::kRuns; ++r)
 #pragma unroll
-      for (int o = 0; o < CO; ++o) acc[v][j][o] = 0.f;
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int o = 0; o < kNO; ++o) acc[v][r][j][o] = 0.f;
 
   const int nchunk = (Ci + T::kCiChunk - 1) / T::kCiChunk;
   stage(0, xs);
@@ -167,11 +180,11 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const float* buf = xs + (k & 1) * T::kChunk;
     const int cic = min(T::kCiChunk, Ci - k * T::kCiChunk);
     for (int cc = 0; cc < cic; ++cc) {
-      const float* wc = ws + (k * T::kCiChunk + cc) * 27 * CO;
+      const float* wc = ws + (k * T::kCiChunk + cc) * 27 * CO + oh * kNO;
 #pragma unroll
       for (int dz = 0; dz < 3; ++dz) {
         const float* rows = buf + (cc * 3 + dz) * T::kPlane +
-                            warp * T::kVY * kRowStride + 4 * lane;
+                            warp * T::kVY * kRowStride + 4 * vl;
         const float* wz = wc + dz * 9 * CO;
         float wr[T::kWeightsInRegs ? 9 * CO : 1];
         if constexpr (T::kWeightsInRegs) {
@@ -180,11 +193,20 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
 #pragma unroll
         for (int r = 0; r < T::kVY + 2; ++r) {
-          const float4 p = *reinterpret_cast<const float4*>(rows +
-                                                            r * kRowStride);
-          const float2 q = *reinterpret_cast<const float2*>(
-              rows + r * kRowStride + 4);
-          const float v[6] = {p.x, p.y, p.z, p.w, q.x, q.y};
+          // columns 4 vl + kRunW ru + 0..5: the run's voxels and halo
+          float v[T::kRuns][6];
+#pragma unroll
+          for (int ru = 0; ru < T::kRuns; ++ru) {
+            const float* src = rows + r * kRowStride + ru * kRunW;
+            const float4 p = *reinterpret_cast<const float4*>(src);
+            const float2 q = *reinterpret_cast<const float2*>(src + 4);
+            v[ru][0] = p.x;
+            v[ru][1] = p.y;
+            v[ru][2] = p.z;
+            v[ru][3] = p.w;
+            v[ru][4] = q.x;
+            v[ru][5] = q.y;
+          }
 #pragma unroll
           for (int dy = 0; dy < 3; ++dy) {
             const int vy = r - dy;
@@ -197,23 +219,26 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 for (int o = 0; o < CO; ++o)
 #pragma unroll
                   for (int j = 0; j < 4; ++j)
-                    acc[vy][j][o] = fmaf(v[j + dx], wr[t * CO + o],
-                                         acc[vy][j][o]);
+                    acc[vy][0][j][o] = fmaf(v[0][j + dx], wr[t * CO + o],
+                                            acc[vy][0][j][o]);
               } else {
 #pragma unroll
-                for (int o = 0; o < CO; o += 4) {
+                for (int o = 0; o < kNO; o += 4) {
                   const float4 k4 =
                       *reinterpret_cast<const float4*>(wz + t * CO + o);
 #pragma unroll
-                  for (int j = 0; j < 4; ++j) {
-                    acc[vy][j][o] = fmaf(v[j + dx], k4.x, acc[vy][j][o]);
-                    acc[vy][j][o + 1] =
-                        fmaf(v[j + dx], k4.y, acc[vy][j][o + 1]);
-                    acc[vy][j][o + 2] =
-                        fmaf(v[j + dx], k4.z, acc[vy][j][o + 2]);
-                    acc[vy][j][o + 3] =
-                        fmaf(v[j + dx], k4.w, acc[vy][j][o + 3]);
-                  }
+                  for (int ru = 0; ru < T::kRuns; ++ru)
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                      const float xv = v[ru][j + dx];
+                      acc[vy][ru][j][o] = fmaf(xv, k4.x, acc[vy][ru][j][o]);
+                      acc[vy][ru][j][o + 1] =
+                          fmaf(xv, k4.y, acc[vy][ru][j][o + 1]);
+                      acc[vy][ru][j][o + 2] =
+                          fmaf(xv, k4.z, acc[vy][ru][j][o + 2]);
+                      acc[vy][ru][j][o + 3] =
+                          fmaf(xv, k4.w, acc[vy][ru][j][o + 3]);
+                    }
                 }
               }
             }
@@ -224,26 +249,30 @@ conv3x3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 
   // store: float4 along W where the row is 16-byte aligned
-  const int xl = 4 * lane;
-  if (xl >= txn) return;
-  const bool vec = (W & 3) == 0 && xl + 4 <= txn;
 #pragma unroll
-  for (int vy = 0; vy < T::kVY; ++vy) {
-    const int yy = y0 + warp * T::kVY + vy;
-    if (yy >= H) break;
-    float* yo = y + (size_t)b * Co * vol + (size_t)z * plane +
-                (size_t)yy * W + x0 + xl;
+  for (int ru = 0; ru < T::kRuns; ++ru) {
+    const int xl = 4 * vl + ru * kRunW;
+    if (xl >= txn) break;
+    const bool vec = (W & 3) == 0 && xl + 4 <= txn;
 #pragma unroll
-    for (int o = 0; o < CO; ++o) {
-      if (o >= Co) break;
-      float* p = yo + (size_t)o * vol;
-      if (vec) {
-        *reinterpret_cast<float4*>(p) = make_float4(
-            acc[vy][0][o], acc[vy][1][o], acc[vy][2][o], acc[vy][3][o]);
-      } else {
+    for (int vy = 0; vy < T::kVY; ++vy) {
+      const int yy = y0 + warp * T::kVY + vy;
+      if (yy >= H) break;
+      float* yo = y + ((size_t)b * Co + oh * kNO) * vol + (size_t)z * plane +
+                  (size_t)yy * W + x0 + xl;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (xl + j < txn) p[j] = acc[vy][j][o];
+      for (int o = 0; o < kNO; ++o) {
+        if (oh * kNO + o >= Co) break;
+        float* p = yo + (size_t)o * vol;
+        if (vec) {
+          *reinterpret_cast<float4*>(p) =
+              make_float4(acc[vy][ru][0][o], acc[vy][ru][1][o],
+                          acc[vy][ru][2][o], acc[vy][ru][3][o]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (xl + j < txn) p[j] = acc[vy][ru][j][o];
+        }
       }
     }
   }
