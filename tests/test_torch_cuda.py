@@ -50,10 +50,11 @@ def test_conv3x3x3_kernel_matches_plain(cuda, ci, co, dhw, batch):
 
 
 # (ci, co, dhw, blocks): every Ci x Co of {1, 3, 16} x {1, 5, 12, 16} (one
-# or two 8-channel blocks; Co padded to 1, 8, 12, 16), W ragged against the
-# 128-wide tile (33, 40, 127), a full tile (128) and a second tile (130);
-# ``blocks`` overrides DK_BLOCKS so a block walks z-runs that start and end
-# inside a column and cross into the next (default: one row a block here)
+# or two 8-channel blocks; Co padded to 1, 8, 12, 16), odd H against the
+# 2-row step, W ragged against the 128-wide tile (33, 40, 127), a full tile
+# (128) and a second tile (130); ``blocks`` overrides DK_BLOCKS so a block
+# walks z-runs that start and end inside a column and cross into the next
+# (default: at most one row a block here, some blocks with none)
 DK_CASES = [(1, 1, (5, 7, 33), None), (1, 16, (4, 9, 40), None),
             (16, 16, (3, 8, 128), None), (16, 1, (3, 5, 9), None),
             (3, 5, (4, 8, 17), None), (1, 1, (7, 3, 127), 5),
