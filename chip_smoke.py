@@ -39,9 +39,21 @@ Run from the repository root.  Phases (any failure exits non-zero):
    1,024 queries, full widths) checks one ``LISTExecutor.train`` step's
    losses, every gradient, the updated BatchNorm statistics and the Adam
    update against the CPU plain path.
-7. Prints one JSON line of kernel numbers (K2 once per path: per request
-   at batch 1, and per train step at batch 8; K4 per mesh of the sweep),
-   then the device line.
+7. Training driver: the full-width CoarseNet (ResNet18 at 224^2, TreeGCN
+   to 4,096 points) takes 1 warm and 3 timed ``CoarseNetExecutor.train``
+   steps at batch 16 (step_s, peak memory, the Chamfer loss), and one small
+   step is held against the CPU in f32 and f64; then ``trainer.train``
+   runs the two-stage recipe on the synthetic dataset with a testlist of
+   two shapes: CoarseNet at batch 8 for 1 epoch, ``split_coarse``, and the
+   full-width LIST warm-started from it at vox_res 128 (batch 8 x 32,768
+   queries, remat, 4 query chunks, ``--eval_pred``) for 1 epoch.  Launch
+   counts asserted per step (K2 14, K3 5) and per testlist shape (K2 5,
+   K1 1), the checkpoint files the driver writes, and the frozen
+   submodules bit-identical to the split after the warm-started epoch.
+8. Prints one JSON line of kernel numbers (K2 once per path: per request
+   at batch 1, and per train step at batch 8; K4 per mesh of the sweep;
+   ``driver_launches``: the warm-started LIST epoch's counts), then the
+   device line.
 
 Every kernel's launch counter is set to 0 just before each path and read
 just after it.
@@ -376,10 +388,11 @@ def _rel(a, r) -> float:
     return float((a - r).norm()) / max(float(r.norm()), 1e-300)
 
 
-def card_gradient_check(cfg, model, batch, LISTExecutor, device='cuda'):
-    """One ``LISTExecutor.train`` step on ``device`` (f32) against the same
-    step on the CPU plain path in f32 and in f64 (the exact reference),
-    from the same weights and batch.
+def card_gradient_check(cfg, model, batch, Executor, device='cuda'):
+    """One ``Executor.train`` step (``LISTExecutor`` or
+    ``CoarseNetExecutor``) on ``device`` (f32) against the same step on the
+    CPU plain path in f32 and in f64 (the exact reference), from the same
+    weights and batch.
 
     With e(x) = ||x - f64|| / ||f64||, every loss, parameter gradient and
     updated BatchNorm statistic must satisfy
@@ -405,7 +418,7 @@ def card_gradient_check(cfg, model, batch, LISTExecutor, device='cuda'):
                           ('cpu', 'cpu', torch.float32),
                           ('cpu64', 'cpu', torch.float64)):
         m = copy.deepcopy(model).to(dt)
-        ex = LISTExecutor(cfg, m, device=dev)
+        ex = Executor(cfg, m, device=dev)
         _, losses = ex.train(batch)
         f64 = lambda a: None if a is None else a.detach().double().cpu()  # noqa
         runs[name] = dict(
@@ -437,7 +450,7 @@ def card_gradient_check(cfg, model, batch, LISTExecutor, device='cuda'):
             if err > tol:
                 bad.append((k, err, tol))
     # Adam on the card: the CPU's optimizer on the card's gradients
-    adam = LISTExecutor(cfg, copy.deepcopy(model), device='cpu')
+    adam = Executor(cfg, copy.deepcopy(model), device='cpu')
     opt = adam.init_optimizer()
     for k, p in adam.model.named_parameters():
         g = card['grads'][k]
@@ -618,6 +631,242 @@ def sweep_phase(args, stencil3d, fused_fc0):
         fail(f'sweep --infer_batch 2: launches {second["launches"]} for '
              f'{second["fresh_meshes"]} fresh meshes, expected {want}')
     return dict(sweeps=[first, second], band=bands)
+
+
+# ---- the training driver (stage 1 -> split -> warm-started stage 2) ---------
+
+COARSE_BATCH = 16  # the README's stage-1 recipe
+NO_LAUNCHES = dict(conv3x3x3=0, conv3x3x3_dx=0, conv3x3x3_dk=0,
+                   fused_stack_head=0, fused_fc0_mlp=0)
+# a testlist shape of stage 2: one encode (K2 x5) and one dense decode (K1)
+TEST_LAUNCHES = dict(conv3x3x3=5, conv3x3x3_dx=0, conv3x3x3_dk=0,
+                     fused_stack_head=1, fused_fc0_mlp=0)
+
+
+def stage1_phase(args, stencil3d, fused_fc0):
+    """The full-width CoarseNet (ResNet18 at 224^2, TreeGCN to 4,096
+    points) at batch 16: 1 warm and 3 timed ``CoarseNetExecutor.train``
+    steps on the synthetic shapes (each twice in a batch), step_s, peak
+    memory and the Chamfer loss per step, no kernel launched; then one
+    small step (batch 2, 64^2 noise images) held against the CPU in f32
+    and f64 by ``card_gradient_check``."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset, collate
+    from list_tpu_torch.models import CoarseNet
+    from list_tpu_torch.train.executors import CoarseNetExecutor
+    cfg = default_config(model='network.models.CoarseNet',
+                         train_batch_size=COARSE_BATCH)
+    t0 = time.perf_counter()
+    ds = SyntheticSDFDataset(cfg, 'train')
+    items = [{k: ds[i][k] for k in ('rgb_image', 'pc')}
+             for i in range(len(ds))]
+    batch = collate([items[i % len(items)] for i in range(COARSE_BATCH)])
+    print(f'stage 1 data {time.perf_counter() - t0:.1f} s', flush=True)
+    torch.manual_seed(args.seed + 2)
+    ex = CoarseNetExecutor(cfg, CoarseNet.from_config(cfg))
+    ex.train(batch)
+    torch.cuda.synchronize()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        reset_counts(stencil3d, fused_fc0)
+        torch.cuda.reset_peak_memory_stats()
+        _, losses = ex.train(batch)
+        rec = dict(step=i, batch=COARSE_BATCH, step_s=ex.timings['step_s'],
+                   peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   chamfer_loss=float(losses['chamfer_loss']),
+                   launches=read_counts(stencil3d, fused_fc0))
+        print('stage 1 step', json.dumps(rec), flush=True)
+        steps.append(rec)
+        if not np.isfinite(rec['chamfer_loss']):
+            fail(f'stage 1 step {i}: the Chamfer loss is not finite')
+        if rec['launches'] != NO_LAUNCHES:
+            fail(f'stage 1 step {i}: launches {rec["launches"]}, expected '
+                 'none')
+    del ex
+    torch.cuda.empty_cache()
+
+    scfg = default_config(train_batch_size=2)
+    small = collate(items[:2])
+    small['rgb_image'] = np.random.RandomState(args.seed + 6).rand(
+        2, 64, 64, 3).astype(np.float32)
+    torch.manual_seed(args.seed + 3)
+    check = card_gradient_check(scfg, CoarseNet.from_config(scfg), small,
+                                CoarseNetExecutor, 'cuda')
+    if not check['ok']:
+        fail(f'one CoarseNet step on the card disagrees with the CPU plain '
+             f'path: {json.dumps(check["bad"])}')
+    return dict(steps=steps, gradient_check=check)
+
+
+def driver_run(cfg, label, Executor, stencil3d, fused_fc0):
+    """``trainer.train(cfg)`` on the card, with each optimizer step's and
+    testlist shape's launch counts (read around the call), step_s and peak
+    memory, and each epoch's and testlist eval's wall recorded."""
+    from list_tpu_torch.train import trainer
+    events = []
+    real = dict(train=Executor.train, test=Executor.test,
+                epoch=trainer.train_one_epoch, testlist=trainer.run_testlist)
+
+    def counted(kind):
+        def call(self, batch, *a, **kw):
+            before = read_counts(stencil3d, fused_fc0)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = real[kind](self, batch, *a, **kw)
+            torch.cuda.synchronize()
+            after = read_counts(stencil3d, fused_fc0)
+            rec = dict(kind=kind, wall_s=time.perf_counter() - t0,
+                       peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                       launches={k: after[k] - before[k] for k in after})
+            if kind == 'train':
+                rec['step_s'] = self.timings['step_s']
+                rec['losses'] = {k: float(v) for k, v in out[1].items()}
+            elif isinstance(out[0], list):  # LIST: [mesh, grid], scores
+                mesh, grid = out[0]
+                rec.update(vertices=len(mesh.vertices), scores=out[1],
+                           grid_min=float(grid.min()),
+                           grid_median=float(np.median(grid)),
+                           grid_max=float(grid.max()))
+            events.append(rec)
+            return out
+        return call
+
+    def walled(kind):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[kind](*a, **kw)
+            rec = dict(kind=kind, wall_s=time.perf_counter() - t0)
+            rec['mean_loss' if kind == 'epoch' else 'scores'] = out
+            events.append(rec)
+            return out
+        return call
+
+    Executor.train, Executor.test = counted('train'), counted('test')
+    trainer.train_one_epoch = walled('epoch')
+    trainer.run_testlist = walled('testlist')
+    reset_counts(stencil3d, fused_fc0)
+    t0 = time.perf_counter()
+    try:
+        trainer.train(cfg)
+    finally:
+        Executor.train, Executor.test = real['train'], real['test']
+        trainer.train_one_epoch = real['epoch']
+        trainer.run_testlist = real['testlist']
+    rec = dict(driver=label, wall_s=time.perf_counter() - t0,
+               launches=read_counts(stencil3d, fused_fc0), events=events)
+    print('driver', json.dumps(rec, default=float), flush=True)
+    return rec
+
+
+def _check_driver(rec, step_launches, test_launches):
+    """Every step and testlist shape launched exactly its kernels, nothing
+    else launched any, and every loss is finite."""
+    steps = [e for e in rec['events'] if e['kind'] == 'train']
+    tests = [e for e in rec['events'] if e['kind'] == 'test']
+    label = rec['driver']
+    if not steps or not tests:
+        fail(f'{label}: {len(steps)} steps and {len(tests)} testlist shapes')
+    for e in steps + tests:
+        want = step_launches if e['kind'] == 'train' else test_launches
+        if e['launches'] != want:
+            fail(f'{label}: a {e["kind"]} call launched {e["launches"]}, '
+                 f'expected {want}')
+    total = {k: len(steps) * step_launches[k] + len(tests) * test_launches[k]
+             for k in step_launches}
+    if rec['launches'] != total:
+        fail(f'{label}: launches {rec["launches"]}, expected {total}')
+    if not all(np.isfinite(v) for e in steps for v in e['losses'].values()):
+        fail(f'{label}: a loss is not finite')
+
+
+def driver_phase(args, stencil3d, fused_fc0):
+    """The README's two-stage recipe through ``trainer.train`` on the
+    synthetic dataset (8 shapes, 224^2 renders), with a testlist of two of
+    them: CoarseNet at batch 8 for 1 epoch, ``split_coarse`` of its
+    best-train checkpoint, then the full-width LIST warm-started from the
+    split (``im_encoder`` and ``point_decoder`` frozen) at vox_res 128,
+    batch 8 x 32,768 queries, remat, 4 query chunks, 1 epoch, its testlist
+    eval at 128^3 with ``--eval_pred``.  Checks the launch counts, the
+    checkpoint files (``best_model_test`` exactly when the eval scored: from
+    random weights one epoch leaves every grid cell of one sign, so its
+    meshes are empty), the frozen submodules bit-identical to the split and
+    ``im_encoder2`` moved."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import checkpoints as ckpt
+    from list_tpu_torch.train.executors import (CoarseNetExecutor,
+                                                LISTExecutor)
+    from list_tpu_torch.train.split_coarse import split_coarse_checkpoint
+    root = os.path.join(HERE, 'build', 'chip_smoke_train')
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    testlist = os.path.join(root, 'testlist.lst')
+    with open(testlist, 'w') as f:
+        f.write('synthetic 0 00\nsynthetic 1 00\n')
+    base = dict(dataset='datasets.Datasets.Synthetic', catlist=['synthetic'],
+                testlist_file=testlist, output_dir=root + '/', epochs=1,
+                save_every_epoch=1, test_every_epoch=1, train_batch_size=8,
+                seed=args.seed)
+    c1 = default_config(model='network.models.CoarseNet',
+                        exp_name='coarse_prediciton', **base)
+    torch.manual_seed(args.seed + 4)
+    first = driver_run(c1, 'stage 1 (CoarseNet)', CoarseNetExecutor,
+                       stencil3d, fused_fc0)
+    _check_driver(first, NO_LAUNCHES, NO_LAUNCHES)
+    t0 = time.perf_counter()
+    split_coarse_checkpoint(os.path.join(c1.checkpoint_dir,
+                                         'best_model_train.ckpt'),
+                            c1.checkpoint_dir)
+    split_s = time.perf_counter() - t0
+
+    c2 = default_config(model='network.models.LIST', exp_name='list',
+                        warm_start=True, vox_res=128,
+                        sample_point_density=32768, remat=1,
+                        train_query_chunks=4, sdf_scale=10.0, eval_pred=True,
+                        **base)
+    torch.manual_seed(args.seed + 5)
+    second = driver_run(c2, 'stage 2 (LIST, warm start)', LISTExecutor,
+                        stencil3d, fused_fc0)
+    _check_driver(second, STEP_LAUNCHES, TEST_LAUNCHES)
+
+    files = {d: sorted(f for f in os.listdir(d) if f.endswith('.ckpt'))
+             for d in (c1.checkpoint_dir, c2.checkpoint_dir)}
+    print('driver checkpoints', json.dumps(
+        {os.path.relpath(d, HERE): v for d, v in files.items()}), flush=True)
+    # best_model_test follows the driver's rule: written when the testlist
+    # eval scored (IoU or Chamfer), which an empty mesh does not
+    scored = any(e['kind'] == 'testlist' and ('iou' in e['scores'] or
+                                              'chamfer_l2' in e['scores'])
+                 for e in second['events'])
+    want = {c1.checkpoint_dir: {'model_1.ckpt', 'best_model_train.ckpt',
+                                'best_IME_test.ckpt', 'best_PD_test.ckpt'},
+            c2.checkpoint_dir: {'model_1.ckpt', 'best_model_train.ckpt'}
+            | ({'best_model_test.ckpt'} if scored else set())}
+    for d, names in want.items():
+        if set(files[d]) != names:
+            fail(f'driver checkpoints in {d}: {files[d]}, expected '
+                 f'{sorted(names)}')
+    trained = LIST.from_config(c2)
+    ckpt.load_checkpoint(os.path.join(c2.checkpoint_dir, 'model_1.ckpt'),
+                         trained)
+    split = LIST.from_config(c2)
+    for name, fname in (('im_encoder', 'best_IME_test.ckpt'),
+                        ('im_encoder2', 'best_IME_test.ckpt'),
+                        ('point_decoder', 'best_PD_test.ckpt')):
+        ckpt.load_submodule(os.path.join(c1.checkpoint_dir, fname), split,
+                            name)
+    same = {name: all(torch.equal(a, b) for a, b in zip(
+        getattr(trained, name).parameters(),
+        getattr(split, name).parameters()))
+        for name in ('im_encoder', 'point_decoder', 'im_encoder2')}
+    print('warm start: parameters bit-identical to the split',
+          json.dumps(same), flush=True)
+    if not (same['im_encoder'] and same['point_decoder']):
+        fail('a frozen submodule moved in the warm-started epoch')
+    if same['im_encoder2']:
+        fail('im_encoder2 did not move in the warm-started epoch')
+    return dict(stage1=first, split_s=split_s, stage2=second,
+                checkpoints=files, frozen_identical=same)
 
 
 def main():
@@ -818,6 +1067,13 @@ def main():
     if not gcheck['ok']:
         fail(f'one train step on the card disagrees with the CPU plain '
              f'path: {json.dumps(gcheck["bad"])}')
+    torch.cuda.empty_cache()
+
+    # ---- training driver: stage 1 executor, then train() twice -----------
+    stage1 = stage1_phase(args, stencil3d, fused_fc0)
+    torch.cuda.empty_cache()
+    driver = driver_phase(args, stencil3d, fused_fc0)
+    driver_launches = driver['stage2']['launches']
 
     kernels = [
         dict(name='conv3x3x3', route='cuda', source=stencil3d.SOURCE,
@@ -830,6 +1086,7 @@ def main():
              replaces=stencil3d.REPLACES,
              launches=train_launches['conv3x3x3'],
              dx_launches=train_launches['conv3x3x3_dx'],
+             driver_launches=driver_launches['conv3x3x3'],
              per=conv_train['unit'], max_abs_err=conv_train['max_abs_err'],
              ms=conv_train['ms'], plain_ms=conv_train['plain_ms'],
              bound_ms=conv_train['bound_ms'],
@@ -837,13 +1094,15 @@ def main():
              library_ms=conv_train['library_ms']),
         dict(name='conv3x3x3_dk', route='cuda', source=stencil3d.DK_SOURCE,
              replaces=stencil3d.DK_REPLACES,
-             launches=train_launches['conv3x3x3_dk'], per=dk['unit'],
+             launches=train_launches['conv3x3x3_dk'],
+             driver_launches=driver_launches['conv3x3x3_dk'], per=dk['unit'],
              max_abs_err=dk['max_abs_err'], ms=dk['ms'],
              plain_ms=dk['plain_ms'], bound_ms=dk['bound_ms'],
              bound_by=dk['bound_by'], library_ms=dk['library_ms']),
         dict(name='fused_stack_head', route='cuda', source=fused_fc0.SOURCE,
              replaces=fused_fc0.REPLACES,
              launches=launches['fused_stack_head'],
+             driver_launches=driver_launches['fused_stack_head'],
              per='request (n = 128^3)',
              max_abs_err=head['max_abs_err'], ms=head['ms'],
              plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
@@ -862,6 +1121,7 @@ def main():
                   small_input_err=ref_err, small_input_k4_err=k4_err,
                   sweep=sweep, train_steps=steps,
                   train_launches=train_launches, gradient_check=gcheck,
+                  stage1=stage1, driver=driver,
                   total_s=time.perf_counter() - t_start)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

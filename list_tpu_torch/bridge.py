@@ -15,11 +15,16 @@ a torch key by name; only the leaf names and layouts change:
 
 Strict: a flax leaf with no torch key, a torch key with no flax leaf (other
 than BatchNorm's ``num_batches_tracked``), or a shape mismatch raises.
+
+``state_dict_to_flax`` is the inverse, from the torch keys alone (a
+module's ``weight`` is a BatchNorm ``scale`` when the module has a
+``running_mean``, else a ``kernel``), for writing the JAX package's
+checkpoints.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -28,6 +33,7 @@ import torch.nn as nn
 _PARAM_LEAF = {'kernel': 'weight', 'scale': 'weight', 'bias': 'bias',
                'W_branch': 'W_branch'}
 _STAT_LEAF = {'mean': 'running_mean', 'var': 'running_var'}
+_KERNEL_AXES = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def _flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
@@ -46,7 +52,7 @@ def _convert_param(leaf: str, a):
     leaf of a checkpoint) a torch tensor."""
     if leaf != 'kernel':
         return a
-    axes = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}.get(a.ndim)
+    axes = _KERNEL_AXES.get(a.ndim)
     if axes is None:
         raise ValueError(f'bridge: unexpected kernel rank {a.ndim}')
     return (a.permute(axes) if isinstance(a, torch.Tensor)
@@ -98,3 +104,41 @@ def load_flax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
                   else torch.tensor(np.array(a), dtype=t.dtype))
     model.load_state_dict(new, strict=True)
     return model
+
+
+def state_dict_to_flax(sd: Mapping[str, Optional[torch.Tensor]],
+                       like: Optional[Mapping[str, torch.Tensor]] = None
+                       ) -> Dict:
+    """Torch-keyed tensors -> the flax ``{'params', 'batch_stats'}`` tree
+    of numpy arrays.  ``like`` (default ``sd``) is the model's state dict,
+    which tells BatchNorm weights from kernels when ``sd`` holds
+    parameter-shaped tensors only (Adam's moments); a ``None`` tensor
+    becomes an empty leaf ``{}`` (optax's masked moment of a frozen
+    parameter)."""
+    like = sd if like is None else like
+    norms = {k.rpartition('.')[0] for k in like if k.endswith('.running_mean')}
+    stats = {v: k for k, v in _STAT_LEAF.items()}
+    out = {'params': {}, 'batch_stats': {}}
+    for key, t in sd.items():
+        if key.endswith('num_batches_tracked'):
+            continue
+        mod, _, leaf = key.rpartition('.')
+        a = {} if t is None else t.detach().cpu().numpy()
+        collection = 'params'
+        if leaf in stats:
+            collection, leaf = 'batch_stats', stats[leaf]
+        elif leaf == 'weight' and mod in norms:
+            leaf = 'scale'
+        elif leaf == 'weight':
+            leaf = 'kernel'
+            if t is not None:
+                axes = _KERNEL_AXES.get(a.ndim)
+                if axes is None:
+                    raise ValueError(f'bridge: unexpected weight rank '
+                                     f'{a.ndim} at {key}')
+                a = np.ascontiguousarray(np.transpose(a, np.argsort(axes)))
+        node = out[collection]
+        for part in (mod.split('.') if mod else []):
+            node = node.setdefault(part, {})
+        node[leaf] = a
+    return out

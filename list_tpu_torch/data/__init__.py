@@ -1,9 +1,10 @@
-"""Host-side data: the synthetic dataset (train and test sweep) and the
-ShapeNet stage-2 dataset's test side."""
+"""Host-side data: the ShapeNet readers of both stages, the synthetic
+dataset and tree writer, the augmentations and the threaded loader."""
 
-from list_tpu_torch.data.loader import collate  # noqa: F401
-from list_tpu_torch.data.shapenet import IM2SDF, read_shape_ids  # noqa: F401
+from list_tpu_torch.data.loader import DataLoader, collate  # noqa: F401
+from list_tpu_torch.data.shapenet import (  # noqa: F401
+    IM2PointFarthest, IM2SDF, read_shape_ids)
 from list_tpu_torch.data.synthetic import (  # noqa: F401
-    SyntheticSDFDataset, SyntheticShape, box_sdf, quantize_occupancy,
-    sphere_sdf)
-from list_tpu_torch.data.transforms import to_float  # noqa: F401
+    SyntheticSDFDataset, SyntheticShape, box_sdf,
+    generate_synthetic_shapenet, quantize_occupancy, sphere_sdf)
+from list_tpu_torch.data.transforms import ImageTransform, to_float  # noqa: F401

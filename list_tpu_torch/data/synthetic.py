@@ -4,13 +4,15 @@ imports).
 
 ``SyntheticSDFDataset`` is an in-memory dataset with the IM2SDF batch
 interface ('rgb_image', 'points', 'values', 'occ', 'pc'), for train smoke
-runs without ShapeNet on disk.  ``quantize_occupancy`` is the JAX
-package's ``list_tpu/data/shapenet.py`` function.  The on-disk ShapeNet
-tree writer is not copied (it needs h5py and PIL).
+runs without ShapeNet on disk; ``generate_synthetic_shapenet`` writes a
+miniature ShapeNet-format tree for the on-disk readers and the drivers
+(h5py and PIL imported there).  ``quantize_occupancy`` is the JAX
+package's ``list_tpu/data/shapenet.py`` function.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -157,3 +159,66 @@ class SyntheticSDFDataset:
         return {'rgb_image': self._images[idx][None],
                 'gt_mesh': self.shapes[idx].mesh(64),
                 'cat_id': cat_id, 'shape_id': shape_id}
+
+
+def generate_synthetic_shapenet(root: str, cats=('03001627',),
+                                n_shapes: int = 2, n_views: int = 2,
+                                img_res: int = 224, n_surface: int = 2000,
+                                sigmas=(0.003, 0.01, 0.07),
+                                seed: int = 333) -> Dict[str, List[str]]:
+    """Write a miniature ShapeNet-format tree usable by IM2SDF /
+    IM2PointFarthest / the train and test drivers.  Returns {cat: [ids]}."""
+    import h5py
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for cat in cats:
+        ids = []
+        for i in range(n_shapes):
+            shape = SyntheticShape(rng)
+            sid = f'synth{i:04d}'
+            ids.append(sid)
+            img_dir = os.path.join(root, 'images', cat, sid, 'easy')
+            h5_dir = os.path.join(root, 'sampled_points', cat, sid)
+            mesh_dir = os.path.join(root, 'mesh', cat, sid)
+            os.makedirs(img_dir, exist_ok=True)
+            os.makedirs(h5_dir, exist_ok=True)
+            os.makedirs(mesh_dir, exist_ok=True)
+
+            for v in range(n_views):
+                img = shape.render(img_res, view_angle=v * np.pi / 6)
+                Image.fromarray((img * 255).astype(np.uint8)).save(
+                    os.path.join(img_dir, f'{v:02d}.png'))
+
+            mesh = shape.mesh(48)
+            mesh.export(os.path.join(mesh_dir, 'isosurf_scaled.obj'))
+
+            surface = mesh.sample(n_surface, rng=rng)
+            with h5py.File(os.path.join(h5_dir, 'sampled_points.h5'),
+                           'w') as f:
+                f.create_dataset('grid_points', data=surface)
+                for s in sigmas:
+                    q = surface + s * rng.randn(len(surface), 3)
+                    sdf = shape.sdf(q)
+                    f.create_dataset(f'query_points_sigma_{s}',
+                                     data=np.concatenate(
+                                         [q, sdf[:, None]], 1))
+            with h5py.File(os.path.join(h5_dir, 'farthest_pointclouds.h5'),
+                           'w') as f:
+                f.create_dataset('points_5000', data=surface[
+                    rng.choice(len(surface), 5000)])
+        out[cat] = ids
+
+    split_dir = os.path.join(root, 'split')
+    os.makedirs(split_dir, exist_ok=True)
+    for cat, ids in out.items():
+        for status in ('train', 'test'):
+            with open(os.path.join(split_dir, f'{cat}_{status}.lst'),
+                      'w') as f:
+                f.write('\n'.join(ids) + '\n')
+    with open(os.path.join(split_dir, 'testlist_all.lst'), 'w') as f:
+        for cat, ids in out.items():
+            for sid in ids:
+                f.write(f'{cat} {sid} 00\n')
+    return out

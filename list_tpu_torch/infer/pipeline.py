@@ -12,9 +12,9 @@ metrics of shape i: a fetch pool runs up to 4 device->host grid transfers
 (``fetch_grid_f32``, a band decode under ``--fetch_mode band``) while a
 pool of host workers meshes and evaluates (the native routines release the
 GIL), with at most 4 meshes in flight.  ``--infer_batch B`` encodes B
-images per pass.  Multi-process sharding of the test list is not ported
-(one process sweeps the whole window), nor is the serial per-shape path of
-executors without ``predict_grid`` (the CoarseNet executor is not ported).
+images per pass.  Executors without a ``predict_grid`` (CoarseNet) take
+the serial per-shape path.  Multi-process sharding of the test list is not
+ported (one process sweeps the whole window).
 """
 
 from __future__ import annotations
@@ -34,6 +34,31 @@ from list_tpu_torch.train.trainer import build_executor, build_model
 from list_tpu_torch.utils.logging import write_scores_csv
 from list_tpu_torch.utils.meshing import generate_mesh
 from list_tpu_torch.utils.meshio import load_mesh
+
+
+def test_one_without_gttransmat(executor, dataset, cat_id, shape_id,
+                                output_dir, cam_id, eval_pred
+                                ) -> Dict[str, float]:
+    """Serial per-shape path (executors without predict_grid; the
+    reference's test_one_*, test.py:14-52)."""
+    os.makedirs(os.path.join(output_dir, cat_id, shape_id), exist_ok=True)
+    eval_score: Dict[str, float] = {}
+    fname = os.path.join(output_dir, cat_id, shape_id, str(cam_id).zfill(2))
+    batch = dataset.get_testdata(cat_id, shape_id, cam_id)
+    if os.path.exists(fname + '_pred.obj'):
+        try:
+            pred = load_mesh(fname + '_pred.obj')
+            if eval_pred and batch.get('gt_mesh') is not None:
+                eval_score = executor.eval(pred, batch['gt_mesh'])
+        except Exception:
+            pred, eval_score = executor.test(batch, eval_pred)
+            executor.save(batch, pred, fname)
+    else:
+        start = time.time()
+        pred, eval_score = executor.test(batch, eval_pred)
+        executor.save(batch, pred, fname)
+        print('Time', time.time() - start)
+    return eval_score
 
 
 def _device_infer(executor, dataset, cat_id, shape_id, output_dir, cam_id):
@@ -121,16 +146,17 @@ def test_all(config, device=None) -> Optional[str]:
     datalist = testset.datalist[start_idx:start_idx + chunk]
     chunk = len(datalist)
 
+    overlap = hasattr(executor, 'predict_grid')
     # Host meshing/eval workers; LIST_TPU_EVAL_WORKERS overrides.
     n_eval_workers = int(os.environ.get('LIST_TPU_EVAL_WORKERS', 0)) \
         or max(1, min(4, (os.cpu_count() or 1)))
     # Each worker's native loops default to every core: split the cores
     # between the pooled shapes instead (an explicit env wins).
-    if 'LIST_TPU_NATIVE_THREADS' not in os.environ:
+    if overlap and 'LIST_TPU_NATIVE_THREADS' not in os.environ:
         os.environ['LIST_TPU_NATIVE_THREADS'] = str(
             max(1, (os.cpu_count() or 1) // n_eval_workers))
-    pool = ThreadPoolExecutor(max_workers=n_eval_workers)
-    fetch_pool = ThreadPoolExecutor(max_workers=4)
+    pool = ThreadPoolExecutor(max_workers=n_eval_workers) if overlap else None
+    fetch_pool = ThreadPoolExecutor(max_workers=4) if overlap else None
     pipeline_depth = 4  # meshes in flight (device grid + host f32 copies)
 
     eval_start = time.time()
@@ -159,7 +185,7 @@ def test_all(config, device=None) -> Optional[str]:
 
     infer_batch = max(int(getattr(config, 'infer_batch', 1) or 1), 1)
     cat_id = 'all'
-    if infer_batch > 1:
+    if overlap and infer_batch > 1:
         # --infer_batch: one encoder pass per group of B shapes, the
         # group's uncached shapes only; host meshing/eval of the previous
         # group drains while the current one computes on the device.
@@ -217,6 +243,13 @@ def test_all(config, device=None) -> Optional[str]:
             cam_ids = ([data['img_id'].split('.')[0]] if 'img_id' in data
                        else [config.test_cam_id])
             for cam_id in cam_ids:
+                if not overlap:
+                    eval_score = test_one_without_gttransmat(
+                        executor, testset, cat_id, shape_id, output_dir,
+                        cam_id, config.eval_pred)
+                    record(eval_score, cat_id, shape_id, cam_id, shape_start,
+                           batch_idx)
+                    continue
                 batch, fname, vals = _device_infer(
                     executor, testset, cat_id, shape_id, output_dir, cam_id)
                 if vals is not None:
@@ -232,8 +265,9 @@ def test_all(config, device=None) -> Optional[str]:
         while pendings_q:
             fut, *meta = pendings_q.popleft()
             record(fut.result(), *meta)
-    pool.shutdown(wait=True)
-    fetch_pool.shutdown(wait=True)
+    if overlap:
+        pool.shutdown(wait=True)
+        fetch_pool.shutdown(wait=True)
 
     logline = f'{config.exp_name} Test: epoch {epoch + 1:03d} '
     denom = max(config.chunk_l, 1)

@@ -1,9 +1,11 @@
-"""The stage-2 LIST model (counterpart of ``list_tpu/models/list_model.py``).
+"""The two LIST models (counterpart of ``list_tpu/models/list_model.py``):
+``CoarseNet`` (stage 1: image -> ResEncoder's 128-d feature ->
+TreeGraphDecoder -> (B, 4096, 3) coarse point cloud) and ``LIST`` (stage 2).
 
-``encode`` runs everything query-independent once per image and returns
-the JAX package's layout: ``pc`` (B, 4096, 3), ``trans_mat`` (B, 4, 3),
-``occ_in`` (B, R, R, R), channels-last ``feat_l2`` (B, H, W, C) maps and
-``vox_feat`` (B, R_s, R_s, R_s, C_s) volumes, and ``occ_pred``.
+In ``LIST``, ``encode`` runs everything query-independent once per image
+and returns the JAX package's layout: ``pc`` (B, 4096, 3), ``trans_mat``
+(B, 4, 3), ``occ_in`` (B, R, R, R), channels-last ``feat_l2`` (B, H, W, C)
+maps and ``vox_feat`` (B, R_s, R_s, R_s, C_s) volumes, and ``occ_pred``.
 ``decode_sdf`` is the general gather decoder (the chunked fallback of the
 executor, and the train path's decoder).
 
@@ -40,6 +42,29 @@ DEFAULT_POINT_FEAT = (128, 128, 256, 256, 256, 128, 128, 3)
 DEFAULT_POINT_DEGREE = (2, 2, 2, 2, 2, 2, 64)
 DEFAULT_IM_ENC_LAYERS = (1, 1, 1, 1, 16, 32, 64, 128, 128)
 RESNET_FILTERS = (64, 64, 128, 256, 512)
+
+
+class CoarseNet(nn.Module):
+    """Stage-1 coarse point-cloud predictor; submodule names follow the
+    flax tree (``image_encoder``, ``point_decoder``)."""
+
+    def __init__(self, point_feat: Sequence[int] = DEFAULT_POINT_FEAT,
+                 point_degree: Sequence[int] = DEFAULT_POINT_DEGREE,
+                 support: int = 10):
+        super().__init__()
+        self.image_encoder = ResEncoder(RESNET_FILTERS)
+        self.point_decoder = TreeGraphDecoder(tuple(point_feat),
+                                              tuple(point_degree), support)
+
+    @classmethod
+    def from_config(cls, config) -> 'CoarseNet':
+        return cls(point_feat=tuple(config.point_feat),
+                   point_degree=tuple(config.point_degree))
+
+    def forward(self, rgba: torch.Tensor) -> torch.Tensor:
+        """rgba (B, H, W, 3) -> (B, 4096, 3)."""
+        featvec, _ = self.image_encoder(rgba)
+        return self.point_decoder([featvec[:, None, :]])
 
 
 class SpatialTransformer(nn.Module):

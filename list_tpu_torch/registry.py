@@ -34,11 +34,6 @@ _ALIASES: Dict[str, str] = {
 
 # Paths of classes not ported yet -> where the port plans them (ROADMAP).
 _NOT_PORTED: Dict[str, str] = {
-    'list_tpu_torch.models.CoarseNet': 'stage-1 CoarseNet, Queue 1 item 12',
-    'list_tpu_torch.train.executors.CoarseNetExecutor':
-        'stage-1 CoarseNet, Queue 1 item 12',
-    'list_tpu_torch.data.IM2PointFarthest':
-        'the stage-1 dataset, with Queue 1 item 12',
     'list_tpu_torch.data.Pix3D': 'the Pix3D reader',
 }
 

@@ -1,39 +1,45 @@
-"""Stage-2 executor (counterpart of
-``list_tpu/train/executors.py::LISTExecutor``).
+"""Executors (counterpart of ``list_tpu/train/executors.py``).
 
-``LISTExecutor(config, model, device=None)`` owns the model on its device
-(``cuda`` unless the caller passes ``device='cpu'``) in eval mode.
+An executor ``(config, model, device=None)`` owns the model on its device
+(``cuda`` unless the caller passes ``device='cpu'``) in eval mode, and its
+optimizer (``init_optimizer``, built at the first step when not before).
+``train(batch)`` runs one optimizer step on a host batch dict (forward in
+train mode, the losses, backward, Adam) and returns ``(None, losses)``,
+recording ``timings['step_s']``; ``train_multi(batches)`` runs one step
+per batch and returns (K,) losses.  The model is in train mode only inside
+a step.
 
-- ``predict_grid`` runs encode + dense-grid decode + the ``sdf_scale``
+- ``CoarseNetExecutor`` (stage 1): the Chamfer loss of the predicted
+  cloud against the batch's ``pc``; ``test`` predicts one image's cloud
+  (and with ``eval_pred`` scores it with ``eval_pointcloud``), ``save``
+  writes it as an ``.obj`` of vertices.
+- ``LISTExecutor`` (stage 2): the occupancy and SDF losses.
+  ``predict_grid`` runs encode + dense-grid decode + the ``sdf_scale``
   divide + the ``--fetch_dtype`` cast (+ the ``--fetch_mode band`` encode)
   on the device and returns the (R, R, R) f32 host grid, or with
   ``device_out`` the device result (a ``BandGrid`` in band mode) for a
   fetch worker; ``predict_grid_batch`` encodes B images in one pass and
   decodes each; ``test`` adds marching cubes and, with ``eval_pred``, the
   mesh metrics.
-- ``train(batch)`` runs one optimizer step (forward in train mode, the
-  occupancy and SDF losses, backward, Adam) on a host batch dict and
-  returns ``(None, losses)``; ``train_multi(batches)`` runs one step per
-  batch and returns (K,) losses.  The model is in train mode only inside
-  a step.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from list_tpu_torch.device import resolve_device
-from list_tpu_torch.eval.metrics import eval_mesh
+from list_tpu_torch.eval.metrics import eval_mesh, eval_pointcloud
 from list_tpu_torch.ops.band import BandGrid, band_encode, fetch_grid_f32
 from list_tpu_torch.ops.dense_grid import dense_grid_sdf
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
-from list_tpu_torch.ops.losses import occupancy_loss, sdf_loss
+from list_tpu_torch.ops.losses import chamfer_loss, occupancy_loss, sdf_loss
 from list_tpu_torch.train.state import make_optimizer
 from list_tpu_torch.utils.meshing import generate_mesh
+from list_tpu_torch.utils.meshio import write_obj
 
 
 def total_loss(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -45,19 +51,11 @@ def total_loss(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
     return total
 
 
-class LISTExecutor:
-    def __init__(self, config, model: torch.nn.Module, device=None,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+class BaseExecutor:
+    def __init__(self, config, model: torch.nn.Module, device=None):
         self.config = config
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.compute_dtype = compute_dtype
-        self.test_pointnum = config.test_pointnum
-        self.sdf_scale = config.sdf_scale
-        self.bb_min = config.bb_min
-        self.bb_max = config.bb_max
-        self.vox_res = config.vox_res
-        self.eval_fn = eval_mesh
         self.timings: Dict[str, float] = {}
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0
@@ -65,6 +63,114 @@ class LISTExecutor:
     def _sync(self) -> None:
         if self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
+
+    def init_optimizer(self, frozen_prefixes: Sequence[str] = ()
+                       ) -> torch.optim.Adam:
+        c = self.config
+        self.optimizer = make_optimizer(
+            self.model.named_parameters(), c.lr, c.beta1,
+            weight_decay=c.weight_decay, frozen_prefixes=frozen_prefixes)
+        return self.optimizer
+
+    def _to_device(self, keep) -> Dict[str, torch.Tensor]:
+        """Host arrays -> device tensors, floats in the parameters' dtype."""
+        dtype = next(self.model.parameters()).dtype
+        dev = {k: torch.as_tensor(np.asarray(v), device=self.device)
+               for k, v in keep.items()}
+        return {k: v.to(dtype) if v.is_floating_point() else v
+                for k, v in dev.items()}
+
+    def _optimizer_step(self, losses_fn: Callable[[], Dict], t0: float):
+        """One step of ``losses_fn`` (the forward and its loss dict) in
+        train mode -> (None, detached losses); ``step_s`` from ``t0``."""
+        if self.optimizer is None:
+            self.init_optimizer()
+        self.model.train()
+        try:
+            self.optimizer.zero_grad(set_to_none=True)
+            losses = losses_fn()
+            total_loss(losses).backward()
+            self.optimizer.step()
+        finally:
+            self.model.eval()
+        self.step += 1
+        self._sync()
+        self.timings['step_s'] = time.perf_counter() - t0
+        return None, {k: v.detach() for k, v in losses.items()}
+
+    def train_multi(self, batches):
+        """One step per batch, in order -> (None, {key: (K,) losses})."""
+        steps = [self.train(b)[1] for b in batches]
+        return None, {k: torch.stack([s[k] for s in steps])
+                      for k in steps[0]}
+
+
+class CoarseNetExecutor(BaseExecutor):
+    """Stage-1 executor."""
+
+    def __init__(self, config, model: torch.nn.Module, device=None):
+        super().__init__(config, model, device)
+        self.eval_fn = eval_pointcloud
+
+    def train(self, batch, calc_loss: bool = True):
+        """One optimizer step on a host batch dict ('rgb_image', 'pc')
+        -> (None, {'chamfer_loss'})."""
+        t0 = time.perf_counter()
+        dev = self._to_device({k: batch[k] for k in ('rgb_image', 'pc')})
+        return self._optimizer_step(lambda: {'chamfer_loss': chamfer_loss(
+            self.model(dev['rgb_image']), dev['pc'])}, t0)
+
+    @torch.inference_mode()
+    def predict(self, rgb_image: np.ndarray) -> np.ndarray:
+        """(B, 4096, 3) f32 host clouds of B images, in eval mode."""
+        self.model.eval()
+        img = torch.as_tensor(np.asarray(rgb_image), dtype=torch.float32,
+                              device=self.device)
+        return self.model(img).float().cpu().numpy()
+
+    def test(self, batch, eval_pred: bool = False):
+        if isinstance(batch, dict):
+            rgb, gt = batch['rgb_image'], batch.get('pc')
+        else:
+            rgb, gt = batch
+        pred = self.predict(rgb)
+        eval_score = self.eval(pred, np.asarray(gt)) if eval_pred else {}
+        return pred, eval_score
+
+    def eval(self, pred, gt) -> Dict[str, float]:
+        if pred.shape[0] > 1:
+            print('Evaluation of multiple predictions (batch_size > 1) '
+                  'is not allowed.')
+            return {}
+        pred = np.asarray(pred)[0]
+        gt = np.asarray(gt)[0] if gt.ndim == 3 else np.asarray(gt)
+        if pred.shape[0] != gt.shape[0]:
+            sample_pids = np.random.randint(gt.shape[0], size=pred.shape[0])
+            gt = gt[sample_pids, :]
+        return self.eval_fn(pred, gt)
+
+    def save(self, batch, pred, fname: str):
+        pred = np.asarray(pred)
+        if pred.shape[0] > 1:
+            print('Saving multiple predictions (batch_size > 1) '
+                  'is not allowed.')
+            return {}
+        write_obj(fname + '_pred.obj', pred[0], [])
+
+
+class LISTExecutor(BaseExecutor):
+    """Stage-2 executor."""
+
+    def __init__(self, config, model: torch.nn.Module, device=None,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(config, model, device)
+        self.compute_dtype = compute_dtype
+        self.test_pointnum = config.test_pointnum
+        self.sdf_scale = config.sdf_scale
+        self.bb_min = config.bb_min
+        self.bb_max = config.bb_max
+        self.vox_res = config.vox_res
+        self.eval_fn = eval_mesh
 
     def _dense_plan(self):
         """(slab, use_pallas) of the dense decode; slab None means the
@@ -210,14 +316,6 @@ class LISTExecutor:
         return torch.cat(vals, dim=1).reshape((self.vox_res,) * 3)
 
     # -- training ------------------------------------------------------------
-    def init_optimizer(self, frozen_prefixes: Sequence[str] = ()
-                       ) -> torch.optim.Adam:
-        c = self.config
-        self.optimizer = make_optimizer(
-            self.model.named_parameters(), c.lr, c.beta1,
-            weight_decay=c.weight_decay, frozen_prefixes=frozen_prefixes)
-        return self.optimizer
-
     def calc_loss(self, pred, gt) -> Dict[str, torch.Tensor]:
         occ_pred, sdf_pred = pred
         occ_gt, sdf_gt = gt
@@ -243,35 +341,18 @@ class LISTExecutor:
         'values', 'occ', optional 'transmat') -> (None, losses).  The
         floating-point inputs take the parameters' dtype; the occupancy
         target is f32, as the occupancy loss computes in f32."""
-        if self.optimizer is None:
-            self.init_optimizer()
         keep = self._train_keys(batch)
         t0 = time.perf_counter()
-        dtype = next(self.model.parameters()).dtype
-        dev = {k: torch.as_tensor(np.asarray(v), device=self.device)
-               for k, v in keep.items()}
-        occ_gt = dev.pop('occ').float()  # uint8 wire or soft f32
-        dev = {k: v.to(dtype) for k, v in dev.items()}
-        self.model.train()
-        try:
-            self.optimizer.zero_grad(set_to_none=True)
+        occ_gt = torch.as_tensor(np.asarray(keep.pop('occ')),
+                                 device=self.device).float()  # uint8 or f32
+        dev = self._to_device(keep)
+
+        def losses():
             pred = self.model(dev['rgb_image'], dev['points'],
                               dev.get('transmat'))
-            losses = self.calc_loss(pred, (occ_gt, dev['values']))
-            total_loss(losses).backward()
-            self.optimizer.step()
-        finally:
-            self.model.eval()
-        self.step += 1
-        self._sync()
-        self.timings['step_s'] = time.perf_counter() - t0
-        return None, {k: v.detach() for k, v in losses.items()}
+            return self.calc_loss(pred, (occ_gt, dev['values']))
 
-    def train_multi(self, batches):
-        """One step per batch, in order -> (None, {key: (K,) losses})."""
-        steps = [self.train(b)[1] for b in batches]
-        return None, {k: torch.stack([s[k] for s in steps])
-                      for k in steps[0]}
+        return self._optimizer_step(losses, t0)
 
     def test(self, batch, eval_pred: bool = False):
         img = batch['rgb_image']

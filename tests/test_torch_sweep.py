@@ -258,7 +258,8 @@ def test_registry_resolves_every_reference_path_to_the_port():
     """Every alias of the JAX package's registry names the same class path
     under list_tpu_torch; the ported ones import, the others raise that
     they are not ported yet."""
-    ported = {'LIST', 'IM2SDF', 'SyntheticSDFDataset', 'LISTExecutor'}
+    ported = {'LIST', 'IM2SDF', 'SyntheticSDFDataset', 'LISTExecutor',
+              'CoarseNet', 'CoarseNetExecutor', 'IM2PointFarthest'}
     for name, target in j_registry._ALIASES.items():
         got = registry.resolve(name)
         assert got == 'list_tpu_torch' + target[len('list_tpu'):]

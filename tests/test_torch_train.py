@@ -383,14 +383,23 @@ def test_step_f32_losses_and_gradients(step32):
             assert np.abs(tg[k]).max() > 0, k
 
 
-def test_step_f32_params_and_batch_stats(step32):
-    """f32 after one step: params within 2 * lr + 1e-5 (Adam's sign flips,
-    as above); batch stats within 1e-3 (the spatial transformer's batch-2
-    statistics, see the losses; the others agree to ~5e-5)."""
+def test_step_f32_params_and_batch_stats(step32, step64):
+    """f32 after one step: params within 2 * lr + 1e-5 of the JAX
+    package's f32 step (Adam's sign flips, as above).  Batch stats are held
+    against the f64 step's (exact) statistics, not against flax's f32 ones:
+    flax computes the variance as E[x^2] - E[x]^2 in f32, which at the
+    spatial transformer's batch of 2 loses digits, by how many depends on
+    the host's f32 reductions.  Measured on a CPU: the port 1.2e-4 off,
+    flax 1.19e-3 (both at spatial_transformer.bn1.running_var); bounds
+    1e-3 for the port and 1e-2 for flax."""
     (_, _, jsd), (_, _, tsd), _ = step32
     err = _state_errors(jsd, tsd, 1e-5)
     assert err['params'][0] <= 2 * LR + 1e-5, err
-    assert err['stats'][0] <= 1e-3, err
+    (_, _, ref), _ = step64
+    port = _state_errors(ref, tsd, 1e-5)['stats']
+    flax = _state_errors(ref, jsd, 1e-5)['stats']
+    assert port[0] <= 1e-3, port
+    assert flax[0] <= 1e-2, flax
 
 
 def test_executor_train_state(step32, setup):
