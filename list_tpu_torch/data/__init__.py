@@ -7,4 +7,5 @@ from list_tpu_torch.data.shapenet import (  # noqa: F401
 from list_tpu_torch.data.synthetic import (  # noqa: F401
     SyntheticSDFDataset, SyntheticShape, box_sdf,
     generate_synthetic_shapenet, quantize_occupancy, sphere_sdf)
-from list_tpu_torch.data.transforms import ImageTransform, to_float  # noqa: F401
+from list_tpu_torch.data.transforms import (  # noqa: F401
+    ImageTransform, to_float)

@@ -61,7 +61,8 @@ class SummaryWriter:
 
 
 def write_scores_csv(path: str, rows, mean_row: bool = True) -> None:
-    """Per-shape score rows + appended mean row (reference: test.py:127-162)."""
+    """Per-shape score rows + appended mean row (reference:
+    test.py:127-162)."""
     if not rows:
         return
     keys = ['ID'] + sorted(k for k in rows[0] if k != 'ID')

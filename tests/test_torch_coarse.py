@@ -38,7 +38,7 @@ CFG = dict(img_res=32, train_batch_size=2, lr=LR,
            point_feat=[128, 8, 8, 3], point_degree=[2, 2, 4])
 
 
-# ---- the Chamfer loss ---------------------------------------------------------
+# ---- the Chamfer loss -------------------------------------------------------
 
 def test_chamfer_matches_jax():
     """chamfer_distance and chamfer_loss values at rtol 1e-5 and the
@@ -65,7 +65,7 @@ def test_chamfer_matches_jax():
                                    atol=1e-5 * np.abs(ref).max())
 
 
-# ---- the model and one step ---------------------------------------------------
+# ---- the model and one step -------------------------------------------------
 
 def _seeded_variables(jm, img_shape, seed=5):
     """The JAX CoarseNet's variable tree filled from a numpy seed: kernels
@@ -221,7 +221,7 @@ def test_test_eval_and_save(setup, tmp_path):
     assert sum(line.startswith("v ") for line in lines) == 16
 
 
-# ---- the training data --------------------------------------------------------
+# ---- the training data ------------------------------------------------------
 
 def _data_cfg(root, pkg_default_config, **kw):
     base = dict(image_dir=os.path.join(root, 'images') + '/',
@@ -240,7 +240,8 @@ def _data_cfg(root, pkg_default_config, **kw):
 def trees(tmp_path_factory):
     """The same seeded ShapeNet-format tree written by both packages."""
     out = {}
-    for name, gen in (('jax', j_generate), ('port', generate_synthetic_shapenet)):
+    for name, gen in (('jax', j_generate),
+                      ('port', generate_synthetic_shapenet)):
         root = str(tmp_path_factory.mktemp(name))
         ids = gen(root, cats=('03001627',), n_shapes=2, n_views=2,
                   img_res=32, n_surface=1200)

@@ -60,7 +60,7 @@ def _same(a, b):
         np.testing.assert_array_equal(np.asarray(b), np.asarray(a))
 
 
-# ---- the msgpack writer and the inverse bridge --------------------------------
+# ---- the msgpack writer and the inverse bridge ------------------------------
 
 def test_msgpack_writer_is_flax(monkeypatch):
     """msgpack_serialize gives flax's bytes: sorted keys, every int width,
@@ -110,7 +110,7 @@ def test_state_dict_to_flax_is_the_jax_tree(which):
         np.testing.assert_array_equal(np.asarray(sd[k]), v.numpy())
 
 
-# ---- checkpoints with Adam state --------------------------------------------------
+# ---- checkpoints with Adam state --------------------------------------------
 
 def _jax_state(variables, dtype, frozen=()):
     cast = lambda t: jax.tree.map(lambda a: jnp.asarray(a, dtype), t)  # noqa
@@ -259,7 +259,7 @@ def test_torch_format_keeps_adam_state_and_refuses_a_mismatch(tmp_path):
         ckpt.load_checkpoint(path, again.model, optimizer=again.optimizer)
 
 
-# ---- submodules, split_coarse, --resnet_ckpt -----------------------------------
+# ---- submodules, split_coarse, --resnet_ckpt --------------------------------
 
 @pytest.fixture(scope='module')
 def coarse_split(tmp_path_factory):
@@ -370,7 +370,7 @@ def test_resnet_ckpt_maps_as_the_jax_package(tmp_path):
                     v, coarse.image_encoder.state_dict()[k]), (name, k)
 
 
-# ---- the driver, end to end ---------------------------------------------------
+# ---- the driver, end to end -------------------------------------------------
 
 def _argv(d):
     out = []
