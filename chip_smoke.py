@@ -50,7 +50,27 @@ Run from the repository root.  Phases (any failure exits non-zero):
    counts asserted per step (K2 14, K3 5) and per testlist shape (K2 5,
    K1 1), the checkpoint files the driver writes, and the frozen
    submodules bit-identical to the split after the warm-started epoch.
-8. Prints one JSON line of kernel numbers (K2 once per path: per request
+8. Distributed phase (``list_tpu_torch.parallel``), under
+   ``build/chip_smoke_dist/``: two ranks on the one card joined by gloo
+   (NCCL refuses two ranks on one GPU) take 1 warm and 2 timed
+   data-parallel steps of the full-width LIST at a global batch of
+   8 x 32,768 queries (4 a rank, remat, 4 query chunks; step_s, peak
+   memory and K2 14 / K3 5 launches a step per rank), after which their
+   parameters, BatchNorm statistics and Adam moments must be
+   bit-identical; one 2-rank step of the small input (vox_res 32, global
+   batch 4) is held to the 1-process step by ``card_gradient_check``'s
+   tolerances; then ``test_all`` with ``--multihost 1`` sweeps each
+   rank's strided 4 of the 8 synthetic test shapes (phase 5's checkpoint,
+   default head, band fetch, ``--eval_pred``) into ``<cat>_p{rank}.csv``,
+   whose rows must be those of phase 5's default-head 1-process sweep
+   within the sweep tolerance (rtol 7e-2, atol 2e-2).  A 1-rank NCCL
+   group's small step must be bit-identical to the step with no group
+   (deterministic algorithms on, in a process of its own).
+   ``evaluation/evaluate_torch.py`` and ``evaluate_gather_torch.py`` score
+   and merge the sharded sweep's meshes, and ``predict_grid`` with the
+   decode split over two row ranges on the card must give the unsplit
+   grid with 2 K1 launches (each timed).
+9. Prints one JSON line of kernel numbers (K2 once per path: per request
    at batch 1, and per train step at batch 8; K4 per mesh of the sweep;
    ``driver_launches``: the warm-started LIST epoch's counts), then the
    device line.
@@ -388,7 +408,31 @@ def _rel(a, r) -> float:
     return float((a - r).norm()) / max(float(r.norm()), 1e-300)
 
 
-def card_gradient_check(cfg, model, batch, Executor, device='cuda'):
+def _step_run(ex, losses) -> dict:
+    """One train step's losses, gradients, BatchNorm statistics and
+    parameters, in f64 on the host."""
+    m = ex.model
+    f64 = lambda a: None if a is None else a.detach().double().cpu()  # noqa
+    return dict(losses={k: f64(v) for k, v in losses.items()},
+                grads={k: f64(p.grad) for k, p in m.named_parameters()},
+                stats={k: f64(v) for k, v in m.state_dict().items()
+                       if 'running' in k},
+                params={k: f64(p) for k, p in m.named_parameters()})
+
+
+def _reference_runs(cfg, model, batch, Executor) -> dict:
+    """The step on the CPU plain path in f32 and in f64 (the exact
+    reference), from ``model``'s weights."""
+    runs = {}
+    for name, dt in (('cpu', torch.float32), ('cpu64', torch.float64)):
+        ex = Executor(cfg, copy.deepcopy(model).to(dt), device='cpu')
+        runs[name] = _step_run(ex, ex.train(batch)[1])
+        del ex
+    return runs
+
+
+def card_gradient_check(cfg, model, batch, Executor, device='cuda',
+                        card=None, refs=None):
     """One ``Executor.train`` step (``LISTExecutor`` or
     ``CoarseNetExecutor``) on ``device`` (f32) against the same step on the
     CPU plain path in f32 and in f64 (the exact reference), from the same
@@ -403,8 +447,10 @@ def card_gradient_check(cfg, model, batch, Executor, device='cuda'):
     further than 10% of the reference from it.  A gradient that is zero by
     construction (max|f64| below 1e-9 of the largest gradient: a conv bias
     before a BatchNorm) must stay below 1e-4 of the largest gradient (the
-    CPU's f32 rounding leaves up to 1.3e-5 there).  Every gradient must be
-    present and finite on the card, and non-zero where the CPU's is.  The
+    CPU's f32 rounding leaves up to 1.3e-5 there).  Every gradient of the
+    f64 reference must be present and finite on the card, and non-zero
+    where the CPU's is; a parameter without one there has none on the
+    card either.  The
     card's updated parameters must equal the CPU's Adam applied to the
     card's own gradients from the same weights, within
     1e-6 * max|p| + 1e-3 * lr.
@@ -412,28 +458,28 @@ def card_gradient_check(cfg, model, batch, Executor, device='cuda'):
     The caller feeds seeded noise images: the synthetic renders' flat
     backgrounds leave channels with a near-zero batch variance, where the
     training BatchNorms amplify f32 rounding into O(1) of many gradients on
-    any device, so no f32 gradient could be held to a tolerance there."""
-    runs = {}
-    for name, dev, dt in (('card', device, torch.float32),
-                          ('cpu', 'cpu', torch.float32),
-                          ('cpu64', 'cpu', torch.float64)):
-        m = copy.deepcopy(model).to(dt)
-        ex = Executor(cfg, m, device=dev)
-        _, losses = ex.train(batch)
-        f64 = lambda a: None if a is None else a.detach().double().cpu()  # noqa
-        runs[name] = dict(
-            losses={k: f64(v) for k, v in losses.items()},
-            grads={k: f64(p.grad) for k, p in m.named_parameters()},
-            stats={k: f64(v) for k, v in m.state_dict().items()
-                   if 'running' in k},
-            params={k: f64(p) for k, p in m.named_parameters()})
-        del ex, m, losses
+    any device, so no f32 gradient could be held to a tolerance there.
+
+    ``card`` and ``refs`` take a card step (``_step_run``) and the CPU
+    runs (``_reference_runs``) made elsewhere: the distributed phase holds
+    its 2-rank step to the 1-process references this way."""
+    if card is None:
+        ex = Executor(cfg, copy.deepcopy(model), device=device)
+        card = _step_run(ex, ex.train(batch)[1])
+        del ex
+    runs = dict(card=card,
+                **(refs or _reference_runs(cfg, model, batch, Executor)))
     card, cpu, ref = (runs[n] for n in ('card', 'cpu', 'cpu64'))
-    gmax = max(float(r.abs().max()) for r in ref['grads'].values())
+    gmax = max(float(r.abs().max()) for r in ref['grads'].values()
+               if r is not None)
     bad, ratio, vox, capped = [], {}, {}, 0
     for part, floor in (('losses', 1e-3), ('grads', 2e-3), ('stats', 1e-4)):
         for k, r in ref[part].items():
             c, g = cpu[part][k], card[part][k]
+            if r is None:  # no gradient reaches it on the CPU
+                if g is not None:
+                    bad.append((k, 'a gradient on the card only'))
+                continue
             if g is None or not bool(torch.isfinite(g).all()) or (
                     float(c.abs().max()) > 0 and float(g.abs().max()) == 0):
                 bad.append((k, 'missing, not finite or zero on the card'))
@@ -483,7 +529,7 @@ SWEEP_SHAPES = 8  # the synthetic test split
 SWEEP_DROPPED = (1, 2, 3, 5)  # cached meshes deleted before the 2nd sweep
 
 
-def sweep_run(cfg, label, stencil3d, fused_fc0):
+def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
     """One ``test_all`` sweep on the card: the whole wall (model build and
     checkpoint load included), the device phase (from the first device
     call's start to the CSV) and fresh meshes per second of it, each device
@@ -532,9 +578,9 @@ def sweep_run(cfg, label, stencil3d, fused_fc0):
                csv=os.path.relpath(csv_path, HERE), columns=header[2:],
                mean_row=dict(zip(header[2:], vals[-1].tolist())))
     print('sweep', json.dumps(rec), flush=True)
-    if len(rows) != SWEEP_SHAPES + 1 or rows[-1][1] != 'Mean':
-        fail(f'sweep {label}: {len(rows)} CSV rows, expected '
-             f'{SWEEP_SHAPES} and the mean row')
+    if len(rows) != shapes + 1 or rows[-1][1] != 'Mean':
+        fail(f'sweep {label}: {len(rows)} CSV rows, expected {shapes} and '
+             'the mean row')
     if vals.size == 0 or not np.isfinite(vals).all():
         fail(f'sweep {label}: a metric in the CSV is missing or not finite')
     return rec
@@ -630,7 +676,7 @@ def sweep_phase(args, stencil3d, fused_fc0):
             or second['fresh_meshes'] != len(SWEEP_DROPPED):
         fail(f'sweep --infer_batch 2: launches {second["launches"]} for '
              f'{second["fresh_meshes"]} fresh meshes, expected {want}')
-    return dict(sweeps=[first, second], band=bands)
+    return dict(sweeps=[first, second], band=bands, checkpoint=ckpt)
 
 
 # ---- the training driver (stage 1 -> split -> warm-started stage 2) ---------
@@ -869,12 +915,433 @@ def driver_phase(args, stencil3d, fused_fc0):
                 checkpoints=files, frozen_identical=same)
 
 
+# ---- the distributed phase ----------------------------------------------------
+
+DIST_WORLD = 2  # gloo ranks on the one card (NCCL refuses two on one GPU)
+DIST_STEPS = 2  # timed 2-rank train steps, after one warm step
+DIST_SHAPES = SWEEP_SHAPES // DIST_WORLD  # each rank's strided test shapes
+# a rank's sweep of its 4 fresh shapes: one encode (K2 x5) and one K1 each
+DIST_SWEEP_LAUNCHES = dict(conv3x3x3=5 * DIST_SHAPES, conv3x3x3_dx=0,
+                           conv3x3x3_dk=0, fused_stack_head=DIST_SHAPES,
+                           fused_fc0_mlp=0)
+SPLIT = ('cuda:0', 'cuda:0')  # the split decode's devices on one card
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def _small_input(seed):
+    """The small step's config, seeded full-width LIST at vox_res 32 and
+    global batch of 4 x 1,024 queries with seeded noise images (see
+    card_gradient_check) and a fixed camera: the batch's ``transmat`` is
+    the model's own eval-mode prediction.
+
+    Both choices keep every f32 gradient well-conditioned, so that an f32
+    step can be held to another at all.  With the spatial transformer in
+    the step, every gradient upstream of its batch-4 BatchNorm1d and
+    ``trans_mat`` is rounding noise on any device (one CPU step at two
+    thread counts disagrees by more than its own size there); the fixed
+    camera leaves those parameters without a gradient, and their
+    BatchNorms still run forward.  The biases of the voxel encoder's first
+    layers feed a ReLU and then a BatchNorm, which removes a constant
+    shift, so their gradients are near-total cancellations whose size
+    depends on the data: with the model and images seeded ``seed + 7`` and
+    ``seed + 8`` (``--seed 0``), ``bn_0.bias``'s gradient came out at a
+    forty-thousandth of the largest one, and its f32 value moved by the
+    check's 10% cap between two CPU runs that differ only in their thread
+    count; the offsets below leave every gradient's f32 value steady
+    there."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset, collate
+    from list_tpu_torch.models import LIST
+    cfg = default_config(vox_res=32, train_batch_size=4,
+                         sample_point_density=1024, sdf_scale=10.0)
+    ds = SyntheticSDFDataset(cfg, 'train', n_shapes=4)
+    batch = collate([ds[i] for i in range(4)])
+    batch['rgb_image'] = np.random.RandomState(seed + 9).rand(
+        *batch['rgb_image'].shape).astype(np.float32)
+    torch.manual_seed(seed + 8)
+    model = LIST.from_config(cfg)
+    with torch.no_grad():
+        batch['transmat'] = model.eval().encode(torch.as_tensor(
+            batch['rgb_image']))['trans_mat'].numpy()
+    return cfg, model, batch
+
+
+def _digests(ex) -> dict:
+    """SHA-256 of the parameters, of the BatchNorm statistics and of the
+    Adam moments, each over its tensors' bytes in name order."""
+    import hashlib
+    names = {id(p): k for k, p in ex.model.named_parameters()}
+    groups = dict(
+        params=sorted(ex.model.named_parameters()),
+        batch_stats=sorted((k, v) for k, v in ex.model.state_dict().items()
+                           if 'running' in k),
+        adam=sorted((f'{names[id(p)]}.{m}', st[m])
+                    for p, st in ex.optimizer.state.items()
+                    for m in ('exp_avg', 'exp_avg_sq')))
+    out = {}
+    for g, items in groups.items():
+        h = hashlib.sha256()
+        for k, t in items:
+            h.update(k.encode())
+            h.update(t.detach().cpu().numpy().tobytes())
+        out[g] = h.hexdigest()
+    return out
+
+
+def _sweep_flags(root, name):
+    return dict(model='network.models.LIST',
+                dataset='datasets.Datasets.Synthetic', vox_res=128,
+                sdf_scale=10.0, eval_pred=True, exp_name='sweep',
+                output_dir=os.path.join(root, name) + '/')
+
+
+def dist_rank(args, stencil3d, fused_fc0):
+    """One gloo rank of the distributed phase on ``cuda:0`` (run by
+    ``dist_phase`` as ``chip_smoke.py --dist_rank R``): the full-width
+    train steps at this rank's half of the global batch, the small step
+    (rank 0 keeps its result), the sharded sweep; writes its record to
+    ``<dist_dir>/rank<R>.json``."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset, collate
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.parallel import multihost
+    from list_tpu_torch.train import LISTExecutor
+    rank = multihost.initialize(f'127.0.0.1:{args.dist_port}', DIST_WORLD,
+                                args.dist_rank, backend='gloo',
+                                device='cuda:0')
+    rec = dict(rank=rank, process_info=multihost.process_info())
+    tcfg = default_config(vox_res=128, train_batch_size=8,
+                          sample_point_density=32768, sdf_scale=10.0)
+    ds = SyntheticSDFDataset(tcfg, 'train', n_shapes=8)
+    batch = collate([ds[i] for i in range(8)])  # the global batch
+    torch.manual_seed(args.seed)
+    ex = LISTExecutor(tcfg, LIST.from_config(tcfg))
+    ex.init_optimizer()
+    rec['train_steps'], _ = train_path(ex, [batch] * (DIST_STEPS + 1),
+                                       stencil3d, fused_fc0)
+    rec['digests'] = _digests(ex)
+    del ex, batch, ds
+    torch.cuda.empty_cache()
+
+    gcfg, model, gbatch = _small_input(args.seed)
+    ex = LISTExecutor(gcfg, model)
+    run = _step_run(ex, ex.train(gbatch)[1])
+    rec['small_digests'] = _digests(ex)
+    if rank == 0:
+        torch.save(run, os.path.join(args.dist_dir, 'small_rank0.pt'))
+    del ex, model, run
+    torch.cuda.empty_cache()
+
+    cfg = default_config(multihost=1, **_sweep_flags(args.dist_dir,
+                                                     'sweep_ranks'))
+    rec['sweep'] = sweep_run(cfg, f'rank {rank} of {DIST_WORLD}', stencil3d,
+                             fused_fc0, shapes=DIST_SHAPES)
+    if rec['sweep']['launches'] != DIST_SWEEP_LAUNCHES:
+        fail(f'rank {rank} sweep: launches {rec["sweep"]["launches"]}, '
+             f'expected {DIST_SWEEP_LAUNCHES}')
+    multihost.sync_global_devices('done')
+    multihost.shutdown()
+    with open(os.path.join(args.dist_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(rec, f, default=float)
+
+
+def nccl_rank(args):
+    """The small step twice with no process group and once in a 1-rank
+    NCCL group (``chip_smoke.py --nccl_rank``), deterministic algorithms
+    on; writes whether each pair is bit-identical to
+    ``<dist_dir>/nccl.json``."""
+    from list_tpu_torch.parallel import multihost
+    from list_tpu_torch.train import LISTExecutor
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg, model, batch = _small_input(args.seed)
+    runs = []
+    for grouped in (False, False, True):
+        if grouped:
+            multihost.initialize(f'127.0.0.1:{args.dist_port}', 1, 0)
+        ex = LISTExecutor(cfg, copy.deepcopy(model))
+        runs.append(_step_run(ex, ex.train(batch)[1]))
+        del ex
+    backend = torch.distributed.get_backend()
+    multihost.shutdown()
+
+    def same(a, b):
+        for part in a:
+            for k, x in a[part].items():
+                y = b[part][k]
+                if (x is None) != (y is None) or (
+                        x is not None and not torch.equal(x, y)):
+                    return False
+        return True
+
+    with open(os.path.join(args.dist_dir, 'nccl.json'), 'w') as f:
+        json.dump(dict(backend=backend, repeat_identical=same(runs[0],
+                                                              runs[1]),
+                       nccl_identical=same(runs[0], runs[2])), f)
+
+
+def _spawn(args, flags, log):
+    cmd = [sys.executable, os.path.abspath(__file__), '--seed',
+           str(args.seed), '--dist_dir', args.dist_dir, *flags]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=':4096:8')
+    return subprocess.Popen(cmd, cwd=HERE, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+
+
+def _join(procs, logs, label, timeout=240):
+    """Wait for ``procs``, print their output, fail unless each exited 0;
+    all are killed at the timeout or as soon as one fails (the others
+    would wait in a collective)."""
+    deadline = time.time() + timeout
+    while any(p.poll() is None for p in procs):
+        if time.time() > deadline or any(p.poll() for p in procs):
+            for p in procs:
+                p.kill()
+            break
+        time.sleep(0.2)
+    codes = [p.wait() for p in procs]
+    for path in logs:
+        with open(path) as f:
+            for line in f:
+                print(f'{label} {os.path.basename(path)[:-4]}| {line}',
+                      end='', flush=True)
+    if any(codes):
+        fail(f'{label}: exit codes {codes}')
+
+
+def split_decode_check(cfg, model, img, fused_fc0, stencil3d, card_line):
+    """``predict_grid`` with the slab range split over ``SPLIT`` against
+    the unsplit grid of the same image: 2 K1 launches (each timed with
+    CUDA events, n = R^3 / 2), bit for bit or within test_torch_slice.py's
+    atol 5e-4 / rtol 2e-2; and ``dense_grid_sdf`` at one slab size over two
+    row ranges against the whole grid, bit for bit."""
+    from list_tpu_torch.ops import dense_grid
+    from list_tpu_torch.train import LISTExecutor
+    grid = dict(fetch_dtype='float32', fetch_mode='grid')
+    whole = LISTExecutor(cfg, model)
+    ref = whole.predict_grid(img, **grid)
+    split = LISTExecutor(cfg, model, decode_devices=SPLIT)
+    real, times = dense_grid.fused_stack_head, []
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = real(*a, **kw)
+        e.record()
+        times.append((s, e))
+        return out
+
+    dense_grid.fused_stack_head = timed
+    reset_counts(stencil3d, fused_fc0)
+    try:
+        got = split.predict_grid(img, **grid)
+    finally:
+        dense_grid.fused_stack_head = real
+    counts = read_counts(stencil3d, fused_fc0)
+    torch.cuda.synchronize()
+    err = float(np.abs(got - ref).max())
+    tol = 5e-4 + 2e-2 * float(np.abs(ref).max())
+    R = cfg.vox_res
+    Ks = (85, 17, 17, 160, 32, 32, 320, 64, 64)
+    with torch.inference_mode():
+        enc = model.encode(torch.as_tensor(img, device='cuda'))
+        args = (model.sdf_decoder, enc['vox_feat'], enc['feat_l2'],
+                enc['trans_mat'], R)
+        a = dense_grid.dense_grid_sdf(*args, slab=R // 2)
+        b = torch.cat([dense_grid.dense_grid_sdf(*args, slab=R // 2,
+                                                 x_range=r)
+                       for r in ((0, R // 2), (R // 2, R))])
+        same_slab = bool(torch.equal(a, b))
+    bound, bound_by = fused_fc0.bound_ms(R ** 3 // len(SPLIT), Ks,
+                                         coarse_bytes=2, q_cols=3)
+    rec = dict(card=card_line, devices=list(SPLIT),
+               plan=split._dense_plan(len(SPLIT)), launches=counts,
+               k1_ms=[s.elapsed_time(e) for s, e in times],
+               k1_n=R ** 3 // len(SPLIT), k1_bound_ms=bound,
+               k1_bound_by=bound_by,
+               decode_s=split.timings['decode_s'],
+               unsplit_decode_s=whole.timings['decode_s'],
+               bitwise=bool(np.array_equal(got, ref)), max_abs_err=err,
+               tol=tol, same_slab_ranges_bitwise=same_slab)
+    print('split decode', json.dumps(rec), flush=True)
+    want = dict(conv3x3x3=5, conv3x3x3_dx=0, conv3x3x3_dk=0,
+                fused_stack_head=len(SPLIT), fused_fc0_mlp=0)
+    if counts != want:
+        fail(f'split decode: launches {counts}, expected {want}')
+    if not (np.isfinite(got).all() and err <= tol and same_slab):
+        fail('the split decode disagrees with the unsplit grid')
+    return rec
+
+
+def _offline_eval(gen_dir, mesh_dir, card_line):
+    """evaluation/evaluate_torch.py (10,000 sample points a mesh, a tenth
+    of its default, for the script's time) and evaluate_gather_torch.py
+    over the sharded sweep's meshes: one pickle per shape, the gathered CSV
+    with a row per shape and the mean row, finite metrics."""
+    t0 = time.perf_counter()
+    for script, flags in (('evaluate_torch.py', ['--gen_dir', gen_dir,
+                                                  '--mesh_dir', mesh_dir,
+                                                  '--n_points', '10000']),
+                          ('evaluate_gather_torch.py',
+                           ['--eval_dir', os.path.join(gen_dir, 'eval')])):
+        r = subprocess.run([sys.executable,
+                            os.path.join(HERE, 'evaluation', script),
+                            *flags], cwd=HERE, capture_output=True,
+                           text=True, timeout=300)
+        if r.returncode != 0:
+            fail(f'{script}: exit {r.returncode}\n{r.stdout}{r.stderr}')
+    with open(os.path.join(gen_dir, 'eval', 'gathered.csv')) as f:
+        header, *rows = list(csv.reader(f))
+    vals = np.asarray([r[2:] for r in rows], np.float64)
+    rec = dict(card=card_line, wall_s=time.perf_counter() - t0,
+               pickles=len([n for n in os.listdir(os.path.join(
+                   gen_dir, 'eval')) if n.startswith('eval_')]),
+               rows=len(rows), mean_row=dict(zip(header[2:],
+                                                 vals[-1].tolist())))
+    print('offline evaluation', json.dumps(rec), flush=True)
+    if rec['pickles'] != SWEEP_SHAPES or len(rows) != SWEEP_SHAPES + 1 \
+            or not np.isfinite(vals).all():
+        fail('the offline evaluation did not score every sweep mesh')
+    return rec
+
+
+def _csv_scores(path):
+    with open(path) as f:
+        header, *rows = list(csv.reader(f))
+    return header, {r[1]: np.asarray(r[2:], np.float64) for r in rows
+                    if r[1] != 'Mean'}
+
+
+def dist_phase(args, stencil3d, fused_fc0, card_line, sweep):
+    """The distributed phase (module docstring, phase 8); ``sweep`` is
+    sweep_phase's record: its checkpoint and its default-head 1-process
+    sweep of the same 8 shapes, which the sharded sweep is held to."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import LISTExecutor
+    from list_tpu_torch.train.checkpoints import load_checkpoint
+    root = args.dist_dir
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    cfg = default_config(**_sweep_flags(root, 'sweep_ranks'))
+    os.makedirs(cfg.checkpoint_dir)
+    shutil.copy(sweep['checkpoint'], os.path.join(cfg.checkpoint_dir,
+                                                  cfg.test_checkpoint))
+
+    # 2 gloo ranks; the small step's CPU references meanwhile
+    port = _free_port()
+    logs = [os.path.join(root, f'rank{r}.log') for r in range(DIST_WORLD)]
+    procs = []
+    for r, path in enumerate(logs):
+        with open(path, 'w') as log:
+            procs.append(_spawn(args, ['--dist_rank', str(r), '--dist_port',
+                                       str(port)], log))
+    gcfg, gmodel, gbatch = _small_input(args.seed)
+    t0 = time.perf_counter()
+    refs = _reference_runs(gcfg, gmodel, gbatch, LISTExecutor)
+    refs_s = time.perf_counter() - t0
+    _join(procs, logs, 'dist')
+    ranks = []
+    for r in range(DIST_WORLD):
+        with open(os.path.join(root, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    for rec in ranks:
+        print('dist rank', json.dumps(dict(
+            card=card_line, rank=rec['rank'],
+            step_s=[s['step_s'] for s in rec['train_steps']],
+            peak_device_gb=[s['peak_device_gb'] for s in rec['train_steps']],
+            sweep_wall_s=rec['sweep']['wall_s'],
+            sweep_device_phase_s=rec['sweep']['device_phase_s'],
+            sweep_peak_device_gb=rec['sweep']['peak_device_gb'],
+            digests=rec['digests'])), flush=True)
+    for key in ('digests', 'small_digests'):
+        if any(r[key] != ranks[0][key] for r in ranks):
+            fail(f'the ranks\' parameters, BatchNorm statistics or Adam '
+                 f'moments differ ({key})')
+    card = torch.load(os.path.join(root, 'small_rank0.pt'))
+    check = card_gradient_check(gcfg, gmodel, gbatch, LISTExecutor,
+                                card=card, refs=refs)
+    if not check['ok']:
+        fail('the 2-rank step disagrees with the 1-process step: '
+             f'{json.dumps(check["bad"])}')
+
+    # the sharded sweep's rows against the 1-process sweep's
+    header, want = _csv_scores(os.path.join(HERE, sweep['sweeps'][1]['csv']))
+    got = {}
+    for rec in ranks:
+        h, rows = _csv_scores(os.path.join(HERE, rec['sweep']['csv']))
+        strided = sorted(want)[rec['rank']::DIST_WORLD]
+        if h != header or sorted(rows) != strided or not os.path.basename(
+                rec['sweep']['csv']).endswith(f'_p{rec["rank"]}.csv'):
+            fail(f'rank {rec["rank"]}: CSV {rec["sweep"]["csv"]} with rows '
+                 f'{sorted(rows)}, expected {strided}')
+        got.update(rows)
+    worst = max(float(np.max(np.abs(got[k] - v) / (2e-2 + 7e-2 * np.abs(v))))
+                for k, v in want.items() if k in got)
+    print('sharded sweep vs 1 process', json.dumps(dict(
+        card=card_line, shapes=sorted(got), worst_err_over_tol=worst)),
+        flush=True)
+    if sorted(got) != sorted(want) or worst > 1:
+        fail('the sharded sweep\'s rows are not the 1-process sweep\'s')
+
+    # 1 NCCL rank, with the offline evaluation of the sharded sweep's
+    # meshes meanwhile; then the split decode
+    nlog = os.path.join(root, 'nccl.log')
+    with open(nlog, 'w') as log:
+        nproc = _spawn(args, ['--nccl_rank', '--dist_port',
+                              str(_free_port())], log)
+    mesh_dir = os.path.join(root, 'gt_mesh')
+    test = SyntheticSDFDataset(cfg, 'test')
+    for i in range(SWEEP_SHAPES):
+        d = os.path.join(mesh_dir, 'synthetic', str(i))
+        os.makedirs(d)
+        test.get_testdata('synthetic', str(i), 0)['gt_mesh'].export(
+            os.path.join(d, 'isosurf_scaled.obj'))
+    offline = _offline_eval(
+        os.path.dirname(os.path.join(HERE, ranks[0]['sweep']['csv'])),
+        mesh_dir, card_line)
+    _join([nproc], [nlog], 'nccl')
+    with open(os.path.join(root, 'nccl.json')) as f:
+        nccl = json.load(f)
+    print('nccl rank', json.dumps(dict(card=card_line, **nccl)), flush=True)
+    if not (nccl['backend'] == 'nccl' and nccl['nccl_identical']):
+        fail('the 1-rank NCCL step is not bit-identical to the step with no '
+             'process group')
+    model = LIST.from_config(cfg)
+    load_checkpoint(sweep['checkpoint'], model)
+    split = split_decode_check(default_config(vox_res=128, sdf_scale=10.0),
+                               model, test.get_testdata(
+                                   'synthetic', '0', 0)['rgb_image'],
+                               fused_fc0, stencil3d, card_line)
+    return dict(ranks=ranks, card_gradient_check=check,
+                cpu_references_s=refs_s, nccl=nccl,
+                sharded_sweep_worst=worst, offline=offline, split=split,
+                wall_s=time.perf_counter() - t_phase)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--requests', type=int, default=3)
     ap.add_argument('--report', default=None,
                     help='also write the run\'s numbers to this JSON file')
+    # the distributed phase's own processes (dist_phase starts them)
+    ap.add_argument('--dist_dir', default=os.path.join(
+        HERE, 'build', 'chip_smoke_dist'), help=argparse.SUPPRESS)
+    ap.add_argument('--dist_rank', type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument('--dist_port', type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument('--nccl_rank', action='store_true',
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -893,6 +1360,10 @@ def main():
         from list_tpu_torch.utils.meshio import make_icosphere
     except ImportError as e:
         fail(f'the list_tpu_torch package is not beside chip_smoke.py ({e})')
+    if args.dist_rank is not None:
+        return dist_rank(args, stencil3d, fused_fc0)
+    if args.nccl_rank:
+        return nccl_rank(args)
 
     t_start = time.perf_counter()
     dev = torch.device('cuda')
@@ -1074,6 +1545,10 @@ def main():
     torch.cuda.empty_cache()
     driver = driver_phase(args, stencil3d, fused_fc0)
     driver_launches = driver['stage2']['launches']
+    torch.cuda.empty_cache()
+
+    # ---- distributed phase: 2 gloo ranks, 1 NCCL rank, the split decode ---
+    dist = dist_phase(args, stencil3d, fused_fc0, card_line, sweep)
 
     kernels = [
         dict(name='conv3x3x3', route='cuda', source=stencil3d.SOURCE,
@@ -1121,7 +1596,7 @@ def main():
                   small_input_err=ref_err, small_input_k4_err=k4_err,
                   sweep=sweep, train_steps=steps,
                   train_launches=train_launches, gradient_check=gcheck,
-                  stage1=stage1, driver=driver,
+                  stage1=stage1, driver=driver, dist=dist,
                   total_s=time.perf_counter() - t_start)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

@@ -3,8 +3,7 @@
 Same flag names and defaults as ``list_tpu/config.py`` (itself mirroring
 the reference's ``arguments.py``), so an experiment command runs under
 either package.  Flags that only change the TPU program (layout, remat,
-fusion knobs, multi-host runtime) are accepted and documented as inert for
-the port.
+fusion knobs) are accepted and documented as inert for the port.
 """
 
 from __future__ import annotations
@@ -104,7 +103,10 @@ def _build_parser() -> ArgumentParser:
 
     # ---- additions of the JAX package (same names and defaults) ----
     a('--seed', type=int, default=333, help='Global seed.')
-    a('--mesh_shape', type=int, nargs='+', default=None, help=_INERT)
+    a('--mesh_shape', type=int, nargs='+', default=None,
+      help='N (or D Q: Q when above 1, else D) local devices that split '
+           'one image\'s dense decode by x rows; training is data-parallel '
+           'over the --multihost processes.')
     a('--dtype', type=str, default='float32',
       choices=['float32', 'bfloat16'], help=_INERT)
     a('--fast_grid', type=int, default=1,
@@ -147,10 +149,18 @@ def _build_parser() -> ArgumentParser:
            '"exact" maps grid indices to world coordinates.')
     a('--profile_dir', type=str, default='')
     a('--num_workers', type=int, default=4)
-    a('--multihost', type=int, default=0, help=_INERT)
-    a('--coordinator_address', type=str, default='', help=_INERT)
-    a('--num_processes_dist', type=int, default=0, help=_INERT)
-    a('--process_id', type=int, default=-1, help=_INERT)
+    a('--multihost', type=int, default=0,
+      help='1: join a torch.distributed process group (the next three '
+           'flags, else COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID): '
+           'data-parallel training with global-batch BatchNorm, a sweep '
+           'sharded over the processes.')
+    a('--coordinator_address', type=str, default='',
+      help='host:port of rank 0 (--multihost 1).')
+    a('--num_processes_dist', type=int, default=0,
+      help='Number of processes (--multihost 1).')
+    a('--process_id', type=int, default=-1,
+      help='This process\'s rank; it runs on card rank %% device_count '
+           '(--multihost 1).')
     a('--checkify', action='store_true', help=_INERT)
     return p
 

@@ -13,8 +13,12 @@ metrics of shape i: a fetch pool runs up to 4 device->host grid transfers
 pool of host workers meshes and evaluates (the native routines release the
 GIL), with at most 4 meshes in flight.  ``--infer_batch B`` encodes B
 images per pass.  Executors without a ``predict_grid`` (CoarseNet) take
-the serial per-shape path.  Multi-process sharding of the test list is not
-ported (one process sweeps the whole window).
+the serial per-shape path.  Under ``--multihost 1`` each process sweeps
+its strided share of the window (``parallel.multihost.shard_datalist``) on
+its own device, with no cross-process work inside the sweep, and writes
+``<cat>_p{rank}.csv``; ``evaluation/evaluate_torch.py`` and
+``evaluation/evaluate_gather_torch.py`` score and merge the processes'
+meshes offline.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import numpy as np
 
 from list_tpu_torch import registry
 from list_tpu_torch.ops.band import fetch_grid_f32
+from list_tpu_torch.parallel import multihost
 from list_tpu_torch.train import checkpoints as ckpt
 from list_tpu_torch.train.trainer import build_executor, build_model
 from list_tpu_torch.utils.logging import write_scores_csv
@@ -111,8 +116,11 @@ def _host_finish(executor, batch, fname, pred_values, eval_pred
 
 def test_all(config, device=None) -> Optional[str]:
     """Sweep the test split on ``device`` (the card unless the caller asks
-    for the CPU); returns the CSV path (None when nothing was
-    evaluated)."""
+    for the CPU; under ``--multihost 1`` the rank's card); returns the CSV
+    path (None when nothing was evaluated)."""
+    multihost.maybe_initialize(config, device=device)
+    device = device or multihost.rank_device()
+    rank, world = multihost.process_info()
     model = build_model(config)
     Dataset = registry.get_class(registry.resolve(config.dataset))
     testset = Dataset(config, 'test')
@@ -143,7 +151,8 @@ def test_all(config, device=None) -> Optional[str]:
     chunk = test_size if (config.chunk_l == 0
                           or start_idx + config.chunk_l > test_size) \
         else config.chunk_l + 1
-    datalist = testset.datalist[start_idx:start_idx + chunk]
+    datalist = multihost.shard_datalist(
+        testset.datalist[start_idx:start_idx + chunk])
     chunk = len(datalist)
 
     overlap = hasattr(executor, 'predict_grid')
@@ -277,6 +286,7 @@ def test_all(config, device=None) -> Optional[str]:
 
     csv_path = None
     if config.eval_pred and rows:
-        csv_path = os.path.join(output_dir, f'{cat_id}.csv')
+        suffix = f'_p{rank}' if world > 1 else ''
+        csv_path = os.path.join(output_dir, f'{cat_id}{suffix}.csv')
         write_scores_csv(csv_path, rows, mean_row=True)
     return csv_path

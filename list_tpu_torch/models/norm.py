@@ -9,10 +9,21 @@ with the biased batch statistics, as ``nn.BatchNorm*d`` does, but updates
 (torch's stock module uses the unbiased variance there).  In eval mode it
 normalizes with the running statistics.
 
+Under a process group of more than one rank (``parallel.multihost``),
+training normalizes with the moments of the whole global batch, as the JAX
+package's BatchNorm does under its ``data`` mesh axis
+(``list_tpu/models/resnet.py:11-13``): each rank's count, mean and centred
+sum of squares are combined (Chan et al.) by two all-reduces of the
+differentiable ``torch.distributed.nn.functional.all_reduce``, so the
+gradient flows through the global moments, and the running statistics,
+updated from them, stay identical on every rank.  One process takes the
+single-process path unchanged.
+
 ``checkpoint(fn, *args)`` is ``torch.utils.checkpoint`` (non-reentrant)
 whose recomputed forward leaves the running statistics alone, so a step
 updates them once, as flax's ``nn.remat`` returns the mutated
-``batch_stats`` once.
+``batch_stats`` once.  A recomputed forward all-reduces its moments again,
+on every rank in the same order.
 """
 
 from __future__ import annotations
@@ -23,6 +34,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+from torch.distributed.nn.functional import all_reduce
+
+from list_tpu_torch.parallel.multihost import moments_group
 
 EPS = 1e-5
 MOMENTUM = 0.1  # weight of the batch statistics in the running ones
@@ -67,12 +81,35 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, EPS)
+        dims = [0] + list(range(2, x.dim()))
+        group = moments_group()
+        if group is not None:
+            return self._global_batch(x, dims, group)
         if not _recomputing:
             with torch.no_grad():
-                dims = [0] + list(range(2, x.dim()))
                 var, mean = torch.var_mean(x, dim=dims, correction=0)
-                self.running_mean.mul_(1.0 - MOMENTUM).add_(mean,
-                                                            alpha=MOMENTUM)
-                self.running_var.mul_(1.0 - MOMENTUM).add_(var, alpha=MOMENTUM)
+                self._update(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, EPS)
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1.0 - MOMENTUM).add_(mean, alpha=MOMENTUM)
+        self.running_var.mul_(1.0 - MOMENTUM).add_(var, alpha=MOMENTUM)
+
+    def _global_batch(self, x: torch.Tensor, dims, group) -> torch.Tensor:
+        """Normalize with the moments of the batch over every rank."""
+        n = x.numel() // x.shape[1]
+        var_r, mean_r = torch.var_mean(x, dim=dims, correction=0)
+        count = mean_r.new_full((1,), float(n))
+        s = all_reduce(torch.cat([mean_r * n, count]), group=group)
+        total = s[-1]
+        mean = s[:-1] / total
+        m2 = all_reduce(var_r * n + n * (mean_r - mean) ** 2, group=group)
+        var = m2 / total
+        if not _recomputing:
+            with torch.no_grad():
+                self._update(mean, var)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        scale = torch.rsqrt(var + EPS) * self.weight
+        return (x - mean.view(shape)) * scale.view(shape) \
+            + self.bias.view(shape)

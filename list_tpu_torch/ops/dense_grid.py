@@ -32,7 +32,7 @@ product (exact), and where it casts straight back, the cast follows.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -187,8 +187,13 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
                    coarse_proj: int = 16,
                    coarse_outside: Optional[bool] = None,
                    hoist_variants: Optional[bool] = None,
-                   use_pallas: int = 2) -> torch.Tensor:
-    """Dense (R^3) SDF for batch size 1 -> (R, R, R) f32 raw SDF.
+                   use_pallas: int = 2,
+                   x_range: Optional[Tuple[int, int]] = None
+                   ) -> torch.Tensor:
+    """Dense (R^3) SDF for batch size 1 -> (R, R, R) f32 raw SDF, or with
+    ``x_range`` (x0, x1) its x rows [x0, x1) as (x1 - x0, R, R), each a
+    whole number of slabs (one device's block of the JAX package's
+    ``shard_map`` over the slabs).
 
     decoder: the ``VoxelDecoder2`` (fc_0..fc_out Linear layers).
     vox_feats: channels-last (1, R_s, R_s, R_s, C_s) volumes; feat_l2:
@@ -203,6 +208,10 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
     R = vox_res
     S = R if slab is None else int(slab)
     assert R % S == 0, (R, S)
+    x0, x1 = (0, R) if x_range is None else (int(v) for v in x_range)
+    if not (0 <= x0 < x1 <= R and x0 % S == 0 and x1 % S == 0):
+        raise ValueError(f'x_range {x_range}: whole slabs of {S} in [0, {R}]')
+    k0, k1 = x0 // S, x1 // S
     dt = compute_dtype
     use_pallas = int(use_pallas)
     if use_pallas not in (0, 1, 2):
@@ -331,10 +340,10 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
             [np.transpose(L, (0, 2, 1, 3)).reshape(nslabs, S, -1)
              for L in proj_Ls], axis=-1), device=dev).to(dt)
         if outside:
-            # the whole grid's coarse term once, cast to the compute dtype
-            Cfull = _mm32(Lcat.reshape(R, -1),
+            # the x rows' coarse term once, cast to the compute dtype
+            Cfull = _mm32(Lcat[k0:k1].reshape(x1 - x0, -1),
                           Ucat.reshape(Ucat.shape[0], -1)).to(dt)
-            Cfull = Cfull.reshape(R, R * R, -1)
+            Cfull = Cfull.reshape(x1 - x0, R * R, -1)
             Ucat = None
 
     w2 = decoder.fc_1.weight.t()
@@ -347,8 +356,8 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
     ar_s = torch.arange(S, dtype=torch.float32, device=dev)
 
     out = []
-    for k in range(nslabs):
-        x0 = k * S
+    for k in range(k0, k1):
+        xs = k * S
         parts = []
         for gi, f in enumerate(ent_vols):
             ch = ent_chs[gi]
@@ -357,7 +366,7 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
             if hoist:
                 sub = _dyn_slice0(f, plan_los[gi][k], r_max)
                 if ent_ident[gi]:
-                    A5 = _dyn_slice0(f, x0, S).reshape(n, 5 * ch)
+                    A5 = _dyn_slice0(f, xs, S).reshape(n, 5 * ch)
                 else:
                     A5 = _xlerp(L7[0], sub).to(dt).reshape(n, 5 * ch)
                 Vx = sub[..., :ch]
@@ -386,13 +395,13 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
 
         coarse = None
         if outside:
-            coarse = Cfull[x0:x0 + S].reshape(n, -1)
+            coarse = Cfull[xs - x0:xs - x0 + S].reshape(n, -1)
         elif Ucat is not None:
             coarse = _mm32(Lcat[k], Ucat.reshape(Ucat.shape[0], -1)
                            ).reshape(n, -1)
 
         # perceptual part from the projected 512-channel map
-        fx = ((ar_s + x0) * step + bb_min)[:, None, None].expand(S, R, R)
+        fx = ((ar_s + xs) * step + bb_min)[:, None, None].expand(S, R, R)
         fy = (ar * step + bb_min)[None, :, None].expand(S, R, R)
         fz = (ar * step + bb_min)[None, None, :].expand(S, R, R)
         p0, p1, p2 = 2.0 * fz, 2.0 * fy, 2.0 * fx

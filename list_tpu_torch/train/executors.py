@@ -9,6 +9,16 @@ recording ``timings['step_s']``; ``train_multi(batches)`` runs one step
 per batch and returns (K,) losses.  The model is in train mode only inside
 a step.
 
+Under a process group (``parallel.multihost``, the JAX package's ``data``
+mesh axis) the executor is data-parallel with plain collectives: rank 0's
+parameters and buffers are broadcast at construction; ``train(batch)``
+takes the global batch and keeps this rank's rows (``parallel.mesh``);
+after the step's one backward pass the gradients of the optimizer's
+parameters are all-reduced once, as one flat buffer, and divided by the
+world size; the returned losses are the ranks' mean.  Parameters, Adam
+state and (through ``models/norm.py``'s global-batch BatchNorm) the
+running statistics stay bit-identical on every rank.
+
 - ``CoarseNetExecutor`` (stage 1): the Chamfer loss of the predicted
   cloud against the batch's ``pc``; ``test`` predicts one image's cloud
   (and with ``eval_pred`` scores it with ``eval_pointcloud``), ``save``
@@ -25,11 +35,13 @@ a step.
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from list_tpu_torch.device import resolve_device
 from list_tpu_torch.eval.metrics import eval_mesh, eval_pointcloud
@@ -37,6 +49,7 @@ from list_tpu_torch.ops.band import BandGrid, band_encode, fetch_grid_f32
 from list_tpu_torch.ops.dense_grid import dense_grid_sdf
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
 from list_tpu_torch.ops.losses import chamfer_loss, occupancy_loss, sdf_loss
+from list_tpu_torch.parallel.mesh import shard_batch
 from list_tpu_torch.train.state import make_optimizer
 from list_tpu_torch.utils.meshing import generate_mesh
 from list_tpu_torch.utils.meshio import write_obj
@@ -51,6 +64,17 @@ def total_loss(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
     return total
 
 
+def _coalesced(tensors: List[torch.Tensor], collective) -> None:
+    """Run ``collective`` on one flat buffer of ``tensors`` (one dtype and
+    device) and copy the result back in place."""
+    if not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    collective(flat)
+    for t, f in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(f.view_as(t))
+
+
 class BaseExecutor:
     def __init__(self, config, model: torch.nn.Module, device=None):
         self.config = config
@@ -59,6 +83,13 @@ class BaseExecutor:
         self.timings: Dict[str, float] = {}
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0
+        self.distributed = dist.is_initialized()
+        if self.distributed:
+            with torch.no_grad():
+                state = list(self.model.state_dict().values())
+                for dt in {t.dtype for t in state}:
+                    _coalesced([t for t in state if t.dtype == dt],
+                               lambda f: dist.broadcast(f, src=0))
 
     def _sync(self) -> None:
         if self.device.type == 'cuda':
@@ -90,13 +121,38 @@ class BaseExecutor:
             self.optimizer.zero_grad(set_to_none=True)
             losses = losses_fn()
             total_loss(losses).backward()
+            if self.distributed:
+                self._all_reduce_grads()
             self.optimizer.step()
         finally:
             self.model.eval()
         self.step += 1
+        losses = {k: v.detach() for k, v in losses.items()}
+        if self.distributed:
+            losses = self._mean_over_ranks(losses)
         self._sync()
         self.timings['step_s'] = time.perf_counter() - t0
-        return None, {k: v.detach() for k, v in losses.items()}
+        return None, losses
+
+    def _rank_batch(self, batch):
+        """This rank's rows of a global host batch (all of it in one
+        process)."""
+        return shard_batch(batch) if self.distributed else batch
+
+    def _all_reduce_grads(self) -> None:
+        """The optimizer's gradients, summed over the ranks in one flat
+        buffer and divided by the world size: the global batch's."""
+        world = dist.get_world_size()
+        grads = [p.grad for g in self.optimizer.param_groups
+                 for p in g['params'] if p.grad is not None]
+        _coalesced(grads, lambda f: (dist.all_reduce(f), f.div_(world)))
+
+    def _mean_over_ranks(self, losses: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+        flat = torch.stack([v.double() for v in losses.values()])
+        dist.all_reduce(flat)
+        flat /= dist.get_world_size()
+        return {k: f.to(v.dtype) for (k, v), f in zip(losses.items(), flat)}
 
     def train_multi(self, batches):
         """One step per batch, in order -> (None, {key: (K,) losses})."""
@@ -116,7 +172,8 @@ class CoarseNetExecutor(BaseExecutor):
         """One optimizer step on a host batch dict ('rgb_image', 'pc')
         -> (None, {'chamfer_loss'})."""
         t0 = time.perf_counter()
-        dev = self._to_device({k: batch[k] for k in ('rgb_image', 'pc')})
+        batch = self._rank_batch({k: batch[k] for k in ('rgb_image', 'pc')})
+        dev = self._to_device(batch)
         return self._optimizer_step(lambda: {'chamfer_loss': chamfer_loss(
             self.model(dev['rgb_image']), dev['pc'])}, t0)
 
@@ -162,7 +219,8 @@ class LISTExecutor(BaseExecutor):
     """Stage-2 executor."""
 
     def __init__(self, config, model: torch.nn.Module, device=None,
-                 compute_dtype: torch.dtype = torch.bfloat16):
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 decode_devices: Optional[Sequence] = None):
         super().__init__(config, model, device)
         self.compute_dtype = compute_dtype
         self.test_pointnum = config.test_pointnum
@@ -171,12 +229,37 @@ class LISTExecutor(BaseExecutor):
         self.bb_max = config.bb_max
         self.vox_res = config.vox_res
         self.eval_fn = eval_mesh
+        self.decode_devices = self._split_devices(decode_devices)
 
-    def _dense_plan(self):
+    def _split_devices(self, devices) -> List[torch.device]:
+        """The dense decode's devices: ``devices`` when given, else N from
+        ``--mesh_shape`` (its ``query`` extent when 2-D and above 1, else
+        its first), the first N cards, or the CPU N times; one device
+        (this executor's) without either."""
+        if devices is not None:
+            return [resolve_device(d) for d in devices]
+        shape = [int(s) for s in (getattr(self.config, 'mesh_shape', None)
+                                  or ())]
+        if len(shape) > 2:
+            raise ValueError(f'--mesh_shape {shape}: 1 or 2 entries')
+        n = shape[1] if len(shape) == 2 and shape[1] > 1 else \
+            (shape[0] if shape else 1)
+        if n <= 1:
+            return [self.device]
+        if self.device.type == 'cpu':
+            return [self.device] * n
+        if n > torch.cuda.device_count():
+            raise ValueError(f'--mesh_shape {shape} needs {n} devices, have '
+                             f'{torch.cuda.device_count()}')
+        return [torch.device('cuda', i) for i in range(n)]
+
+    def _dense_plan(self, ndev: int = 1):
         """(slab, use_pallas) of the dense decode; slab None means the
         chunked decoder.  The slab is the JAX package's: the whole grid in
-        one slab for the fused head at R <= 128, else the largest of
-        (64, 32, 16, 8, 4, 2) (above R = 192: (8, 4, 2)) dividing R.
+        one slab for the fused head at R <= 128 on one device, else the
+        largest of (64, 32, 16, 8, 4, 2) (above R = 192: (8, 4, 2)) that
+        divides R into a slab count divisible by the ``ndev`` devices of a
+        split decode.
 
         The head follows ``--use_pallas`` (0, 1 or 2) on the card and is
         always 0 on the CPU, as the JAX package's is.  Its auto choice
@@ -189,10 +272,11 @@ class LISTExecutor(BaseExecutor):
         cfg_up = int(getattr(self.config, 'use_pallas', -1))
         on_card = self.device.type == 'cuda'
         head = (2 if cfg_up == -1 else cfg_up) if on_card else 0
-        if on_card and R <= 128 and head == 2:
+        if on_card and ndev == 1 and R <= 128 and head == 2:
             return R, 2
         pref = (64, 32, 16, 8, 4, 2) if R <= 192 else (8, 4, 2)
-        slab = next((s for s in pref if R % s == 0), None)
+        slab = next((s for s in pref if R % s == 0
+                     and (R // s) % ndev == 0), None)
         if slab is None:
             return None, 0
         return slab, head
@@ -204,16 +288,25 @@ class LISTExecutor(BaseExecutor):
             fetch_mode = getattr(self.config, 'fetch_mode', 'grid')
         return fetch_dtype, fetch_mode
 
-    def _dense_finish(self, vox_feat, feat_l2, trans_mat, slab, use_pallas,
-                      fetch_dtype, fetch_mode):
-        """Dense decode + ``sdf_scale`` divide + wire cast (+ band encode)
-        of one image's encoding, on the device."""
-        grid = dense_grid_sdf(self.model.sdf_decoder, vox_feat, feat_l2,
-                              trans_mat, self.vox_res, slab=slab,
-                              compute_dtype=self.compute_dtype,
-                              bb_min=self.bb_min, bb_max=self.bb_max,
-                              use_pallas=use_pallas)
-        return self._finish(grid, fetch_dtype, fetch_mode)
+    def _decode(self, enc, slab, use_pallas) -> torch.Tensor:
+        """The dense (R, R, R) raw SDF of one image's encoding, over
+        ``decode_devices``: device i of N decodes x rows
+        [i R / N, (i + 1) R / N) from its copy of the features and the
+        decoder, and the ranges are concatenated on this executor's
+        device."""
+        devs = self.decode_devices
+        rows = self.vox_res // len(devs)
+        parts = []
+        for i, d in enumerate(devs):
+            dec = self.model.sdf_decoder if d == self.device \
+                else copy.deepcopy(self.model.sdf_decoder).to(d)
+            parts.append(dense_grid_sdf(
+                dec, [f.to(d) for f in enc['vox_feat']],
+                [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d),
+                self.vox_res, slab=slab, compute_dtype=self.compute_dtype,
+                bb_min=self.bb_min, bb_max=self.bb_max,
+                use_pallas=use_pallas, x_range=(i * rows, (i + 1) * rows)))
+        return torch.cat([p.to(self.device) for p in parts])
 
     def _finish(self, grid, fetch_dtype, fetch_mode):
         wire = torch.bfloat16 if fetch_dtype == 'bfloat16' else torch.float32
@@ -243,15 +336,14 @@ class LISTExecutor(BaseExecutor):
         if fast is None:
             fast = bool(getattr(self.config, 'fast_grid', 1)) \
                 and img.shape[0] == 1
-        slab, use_pallas = self._dense_plan()
+        slab, use_pallas = self._dense_plan(len(self.decode_devices))
         t0 = time.perf_counter()
         enc = self.model.encode(img, tm)
         self._sync()
         t1 = time.perf_counter()
         if fast and slab is not None:
-            out = self._dense_finish(enc['vox_feat'], enc['feat_l2'],
-                                     enc['trans_mat'], slab, use_pallas,
-                                     fetch_dtype, fetch_mode)
+            out = self._finish(self._decode(enc, slab, use_pallas),
+                               fetch_dtype, fetch_mode)
         else:
             out = self._finish(self._chunked_decode(enc), fetch_dtype,
                                'grid')
@@ -274,7 +366,7 @@ class LISTExecutor(BaseExecutor):
         host array.  ``timings`` holds the batch's ``encode_s`` and the
         summed ``decode_s``."""
         fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
-        slab, use_pallas = self._dense_plan()
+        slab, use_pallas = self._dense_plan(len(self.decode_devices))
         if not (bool(getattr(self.config, 'fast_grid', 1))
                 and slab is not None):
             grids = [self.predict_grid(
@@ -293,11 +385,11 @@ class LISTExecutor(BaseExecutor):
             enc = self.model.encode(img, tm)
             self._sync()
             t1 = time.perf_counter()
-            grids = [self._dense_finish(
-                [f[i:i + 1] for f in enc['vox_feat']],
-                [f[i:i + 1] for f in enc['feat_l2']],
-                enc['trans_mat'][i:i + 1], slab, use_pallas, fetch_dtype,
-                fetch_mode) for i in range(img.shape[0])]
+            grids = [self._finish(self._decode(
+                {'vox_feat': [f[i:i + 1] for f in enc['vox_feat']],
+                 'feat_l2': [f[i:i + 1] for f in enc['feat_l2']],
+                 'trans_mat': enc['trans_mat'][i:i + 1]}, slab, use_pallas),
+                fetch_dtype, fetch_mode) for i in range(img.shape[0])]
             self._sync()
             self.timings.update(encode_s=t1 - t0,
                                 decode_s=time.perf_counter() - t1)
@@ -341,7 +433,7 @@ class LISTExecutor(BaseExecutor):
         'values', 'occ', optional 'transmat') -> (None, losses).  The
         floating-point inputs take the parameters' dtype; the occupancy
         target is f32, as the occupancy loss computes in f32."""
-        keep = self._train_keys(batch)
+        keep = self._rank_batch(self._train_keys(batch))
         t0 = time.perf_counter()
         occ_gt = torch.as_tensor(np.asarray(keep.pop('occ')),
                                  device=self.device).float()  # uint8 or f32

@@ -10,8 +10,10 @@ testlist, periodic / best-train / best-test checkpoints in the JAX
 package's format (the best test model by IoU, else Chamfer), scalar
 logging, and ``--profile_dir`` (a ``torch.profiler`` trace of the first
 epoch).  ``train(config, device=None)`` runs on the card unless the caller
-passes ``device='cpu'``.  ``--multihost`` is not ported: one process
-trains.
+passes ``device='cpu'``.  Under ``--multihost 1`` every process trains
+data-parallel on the same global batches (``parallel.multihost``; each on
+its rank's card), runs the testlist eval and reaches the same best-model
+decision; only rank 0 writes checkpoints, logs, summaries and the trace.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from list_tpu_torch import registry
 from list_tpu_torch.data.loader import DataLoader
+from list_tpu_torch.parallel import multihost
 from list_tpu_torch.train import checkpoints as ckpt
 from list_tpu_torch.utils.logging import SummaryWriter, print_log
 
@@ -161,7 +164,26 @@ def _save(executor, epoch, loss, path) -> None:
                          fmt=CKPT_FORMAT)
 
 
+class _NullWriter:
+    """Stand-in for ``SummaryWriter`` on the ranks other than 0 (one process
+    owns the shared results directory)."""
+
+    def add_scalar(self, *a, **k):
+        pass
+
+    def add_text(self, *a, **k):
+        pass
+
+    def close(self):
+        pass
+
+
 def train(config, device=None) -> None:
+    # join the process group before any device use; the parameters and
+    # Adam state stay identical on every rank, so rank 0 writes for all
+    multihost.maybe_initialize(config, device=device)
+    device = device or multihost.rank_device()
+    primary = multihost.process_info()[0] == 0
     model = build_model(config)
     Dataset = registry.get_class(registry.resolve(config.dataset))
     trainset = Dataset(config, 'train')
@@ -222,17 +244,19 @@ def train(config, device=None) -> None:
         if os.path.exists(pd):
             ckpt.load_submodule(pd, executor.model, 'point_decoder')
             print(config.exp_name, 'PD checkpoint loaded')
-        _save(executor, -1, best_train_loss, best_train_path)
-        print('Initial checkpoint saved.')
+        if primary:
+            _save(executor, -1, best_train_loss, best_train_path)
+            print('Initial checkpoint saved.')
     else:
         executor.init_optimizer()
         _maybe_load_resnet(executor, config)
 
-    writer = SummaryWriter(os.path.join(config.results_dir, 'summary'))
+    writer = (SummaryWriter(os.path.join(config.results_dir, 'summary'))
+              if primary else _NullWriter())
     writer.add_text('opt', str(config), 0)
 
     profiler = None
-    if getattr(config, 'profile_dir', ''):
+    if primary and getattr(config, 'profile_dir', ''):
         acts = [torch.profiler.ProfilerActivity.CPU]
         if executor.device.type == 'cuda':
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -243,17 +267,20 @@ def train(config, device=None) -> None:
         if not config.skip_train:
             loss = train_one_epoch(epoch, executor, train_iter, config,
                                    writer)
-            if (epoch + 1) % config.save_every_epoch == 0:
+            if primary and (epoch + 1) % config.save_every_epoch == 0:
                 _save(executor, epoch, loss,
                       os.path.join(ckpt_dir, f'model_{epoch + 1}.ckpt'))
             if best_train_loss > loss:
                 best_train_loss = loss
-                _save(executor, epoch, loss, best_train_path)
+                if primary:
+                    _save(executor, epoch, loss, best_train_path)
 
         if (epoch + 1) % config.test_every_epoch == 0:
+            # every rank evaluates the same testlist with the same weights,
+            # so the best-model decision advances alike; rank 0 writes
             eval_start = time.time()
             eval_scores = run_testlist(epoch, executor, trainset, config,
-                                       config.testlist)
+                                       config.testlist, write=primary)
             n_test = max(len(config.testlist), 1)
             # best-model selection prefers IoU, then chamfer (train.py:270-277)
             if config.eval_pred and 'iou' in eval_scores \
@@ -268,7 +295,8 @@ def train(config, device=None) -> None:
                     and (epoch + 1) >= config.save_after_epoch:
                 best_test_score = test_score
                 best_test_epoch = epoch + 1
-                _save(executor, epoch, test_score, best_test_path)
+                if primary:
+                    _save(executor, epoch, test_score, best_test_path)
 
             logline = (f'{config.exp_name} Test: Epoch '
                        f'{epoch + 1:03d}||{config.epochs} ')
@@ -279,8 +307,9 @@ def train(config, device=None) -> None:
                 f' Best Score: {best_test_score:7.3f} '
                 f'Best Epoch: {best_test_epoch:03d} '
                 f'time: {(time.time() - eval_start):0.5f}')
-            print(logline)
-            print_log(config.log, logline)
+            if primary:
+                print(logline)
+                print_log(config.log, logline)
 
         epoch += 1
         if profiler is not None:  # the trace covers the first epoch

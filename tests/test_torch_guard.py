@@ -14,8 +14,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    """Importing the port, its entry scripts infer_torch.py and
-    train_torch.py, and everything chip_smoke.py imports, loads no
+    """Importing the port, its entry scripts infer_torch.py,
+    train_torch.py, evaluation/evaluate_torch.py and
+    evaluation/evaluate_gather_torch.py, and everything chip_smoke.py
+    imports, loads no
     jax/flax/optax module and no module of the JAX package (``list_tpu``
     or ``list_tpu.*`` -- ``list_tpu_torch`` itself must not trip the
     check)."""
@@ -40,6 +42,10 @@ def test_port_and_chip_smoke_import_no_jax():
         'import list_tpu_torch.train.split_coarse\n'
         'import list_tpu_torch.data.loader, list_tpu_torch.utils.torch_port\n'
         'import train_torch\n'
+        'import list_tpu_torch.parallel.multihost\n'
+        'import list_tpu_torch.parallel.mesh, list_tpu_torch.eval.offline\n'
+        'sys.path.insert(0, "evaluation")\n'
+        'import evaluate_torch, evaluate_gather_torch\n'
         'src = open("chip_smoke.py").read()\n'
         'for node in ast.walk(ast.parse(src)):\n'
         '    if isinstance(node, ast.Import):\n'
