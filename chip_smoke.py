@@ -50,7 +50,25 @@ Run from the repository root.  Phases (any failure exits non-zero):
    counts asserted per step (K2 14, K3 5) and per testlist shape (K2 5,
    K1 1), the checkpoint files the driver writes, and the frozen
    submodules bit-identical to the split after the warm-started epoch.
-8. Distributed phase (``list_tpu_torch.parallel``), under
+8. Pix3D phase, under ``build/chip_smoke_pix3d/``: 8 synthetic shapes in
+   a raw Pix3D tree (raw meshes, one 224x224 render a shape, pix3d.json,
+   train and test splits of 8 and 4 images) go through the port's
+   preprocessing at the published settings (``preprocess.run``, 50,000
+   surface points, sigmas 0.003 0.01 0.07; host seconds a mesh), then its
+   farthest-point sampling on the card at k = 5,000 (synchronized seconds
+   a shape; indices against the same function on the CPU, the covering
+   radii within 1e-6 relative) and ``run_fps``; then ``trainer.train``
+   runs the Pix3D two-stage recipe on the preprocessed tree: CoarseNet
+   ``-e coarse_prediciton_Pix3D`` at batch 8 for 1 epoch,
+   ``split_coarse``, the full-width LIST ``-e list_Pix3D --warm_start`` at
+   vox_res 128 (batch 8 x 32,768 queries, remat, 4 query chunks) for 1
+   epoch with a testlist of two images and ``--eval_pred`` (launches per
+   step and per testlist image, checkpoint files and frozen submodules
+   asserted as in phase 7); and ``test_all`` sweeps the 4 test images from
+   stage 2's weights (fc_out's bias centred on the first test image's
+   grid), K2 5 and K1 1 a fresh image and one CSV row per image, named
+   ``<model folder>_<image>``.  One ``pix3d`` JSON line sums it up.
+9. Distributed phase (``list_tpu_torch.parallel``), under
    ``build/chip_smoke_dist/``: two ranks on the one card joined by gloo
    (NCCL refuses two ranks on one GPU) take 1 warm and 2 timed
    data-parallel steps of the full-width LIST at a global batch of
@@ -70,10 +88,11 @@ Run from the repository root.  Phases (any failure exits non-zero):
    and merge the sharded sweep's meshes, and ``predict_grid`` with the
    decode split over two row ranges on the card must give the unsplit
    grid with 2 K1 launches (each timed).
-9. Prints one JSON line of kernel numbers (K2 once per path: per request
-   at batch 1, and per train step at batch 8; K4 per mesh of the sweep;
-   ``driver_launches``: the warm-started LIST epoch's counts), then the
-   device line.
+10. Prints one JSON line of kernel numbers (K2 once per path: per request
+    at batch 1, and per train step at batch 8; K4 per mesh of the sweep;
+    ``driver_launches`` and ``pix3d_launches``: the warm-started LIST
+    epoch's counts on the synthetic and the Pix3D data), then the device
+    line.
 
 Every kernel's launch counter is set to 0 just before each path and read
 just after it.
@@ -915,6 +934,251 @@ def driver_phase(args, stencil3d, fused_fc0):
                 checkpoints=files, frozen_identical=same)
 
 
+# ---- the Pix3D phase: raw meshes -> preprocessing -> FPS -> train -> sweep --
+
+PIX3D_SHAPES = 8  # one image a shape, all in the train split
+PIX3D_TEST = 4  # the test split: the first four images
+PIX3D_POINTS = 50000  # preprocessing's published --num_points
+PIX3D_SIGMAS = (0.003, 0.01, 0.07)  # and --sigma
+FPS_K = 5000  # farthest_pointcloud's published --k
+
+
+def _covering_radius(pts, idx, chunk=8192) -> float:
+    """max over the points of the distance to the nearest chosen point
+    (f64, on the points' device)."""
+    p = pts.double()
+    c = p[idx]
+    return max(float(torch.cdist(p[i:i + chunk], c).min(1).values.max())
+               for i in range(0, len(p), chunk))
+
+
+def fps_check(h5_dir, card_line):
+    """The port's FPS at k = 5,000 on every shape's 50,000 grid points: on
+    the card (synchronized wall a shape) against the same function on the
+    CPU (identical indices expected; fails unless the covering radii agree
+    to 1e-6 relative), then ``run_fps`` over the tree on the card, whose
+    files must hold the card's points."""
+    import glob
+
+    from list_tpu_torch.data.preprocess import run_fps
+    from list_tpu_torch.ops.fps import farthest_point_sampling
+    from list_tpu_torch.utils import h5
+    files = sorted(glob.glob(os.path.join(h5_dir, '*', '*',
+                                          'sampled_points.h5')))
+    raw, pts, card, card_s, refs, cpu_s = [], [], [], [], [], []
+    for fn in files:
+        with h5.File(fn, 'r') as f:
+            raw.append(f['grid_points'][:])
+        pts.append(torch.as_tensor(raw[-1], dtype=torch.float32))
+        card_pts = pts[-1].cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.append(farthest_point_sampling(card_pts, FPS_K))
+        torch.cuda.synchronize()
+        card_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        refs.append(farthest_point_sampling(pts[-1], FPS_K))
+        cpu_s.append(time.perf_counter() - t0)
+    shapes = []
+    for fn, r, p, idx, ref, t, tc in zip(files, raw, pts, card, refs, card_s,
+                                         cpu_s):
+        got = idx.cpu()
+        diff = (got != ref).nonzero()
+        p = p.cuda()
+        r_card = _covering_radius(p, idx)
+        r_cpu = _covering_radius(p, ref.cuda())
+        shapes.append(dict(
+            shape=os.path.basename(os.path.dirname(fn)), n=len(p), card_s=t,
+            cpu_s=tc,
+            leading_equal=int(diff[0]) if len(diff) else FPS_K,
+            identical=not len(diff), covering_radius=r_card,
+            radius_rel_diff=abs(r_card - r_cpu) / r_cpu,
+            points=r[got.numpy()]))
+    for s in shapes:
+        print('fps shape', json.dumps({k: v for k, v in s.items()
+                                        if k != 'points'}), flush=True)
+    bad = [s['shape'] for s in shapes if s['radius_rel_diff'] > 1e-6]
+    if bad:
+        fail(f'FPS on the card: covering radius off the CPU\'s by more than '
+             f'1e-6 relative for {bad}')
+    t0 = time.perf_counter()
+    done = run_fps(h5_dir, FPS_K)
+    run_s = time.perf_counter() - t0
+    if done != len(files):
+        fail(f'run_fps processed {done} of {len(files)} shapes')
+    for fn, s in zip(files, shapes):
+        with h5.File(os.path.join(os.path.dirname(fn),
+                                  'farthest_pointclouds.h5'), 'r') as f:
+            if not np.array_equal(f[f'points_{FPS_K}'][:], s.pop('points')):
+                fail(f'run_fps wrote other points than the card\'s FPS for '
+                     f'{s["shape"]}')
+    rec = dict(card=card_line, k=FPS_K, shapes=len(shapes),
+               card_s_per_shape=card_s, median_card_s=float(np.median(card_s)),
+               cpu_s_per_shape=cpu_s, run_fps_s_per_shape=run_s / len(shapes),
+               identical=sum(s['identical'] for s in shapes),
+               min_leading_equal=min(s['leading_equal'] for s in shapes),
+               max_radius_rel_diff=max(s['radius_rel_diff'] for s in shapes))
+    print('fps', json.dumps(rec), flush=True)
+    return dict(rec, per_shape=shapes)
+
+
+def _stage(rec):
+    """One driver run's wall, optimizer steps' step_s and peaks."""
+    steps = [e for e in rec['events'] if e['kind'] == 'train']
+    return dict(wall_s=rec['wall_s'], step_s=[e['step_s'] for e in steps],
+                peak_device_gb=[e['peak_device_gb'] for e in steps])
+
+
+def pix3d_phase(args, stencil3d, fused_fc0, card_line):
+    """The Pix3D path from raw meshes (module docstring, phase 8)."""
+    import glob
+
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import Pix3D, generate_synthetic_pix3d
+    from list_tpu_torch.data.preprocess import run
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import checkpoints as ckpt
+    from list_tpu_torch.train.executors import (CoarseNetExecutor,
+                                                LISTExecutor)
+    from list_tpu_torch.train.split_coarse import split_coarse_checkpoint
+    root = os.path.join(HERE, 'build', 'chip_smoke_pix3d')
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    inputs = generate_synthetic_pix3d(root, n_shapes=PIX3D_SHAPES,
+                                      n_test=PIX3D_TEST, seed=args.seed + 7)
+    tree_s = time.perf_counter() - t0
+    data = os.path.join(root, 'data')
+
+    # preprocessing at the published settings
+    pre_s = []
+    for path in inputs:
+        t0 = time.perf_counter()
+        run(path, data, PIX3D_SIGMAS, PIX3D_POINTS)
+        pre_s.append(time.perf_counter() - t0)
+    made = sorted(glob.glob(os.path.join(data, 'sampled_points', '*', '*',
+                                         'sampled_points.h5')))
+    print('pix3d preprocessing', json.dumps(dict(
+        shapes=len(made), num_points=PIX3D_POINTS, sigmas=PIX3D_SIGMAS,
+        s_per_mesh=pre_s, tree_s=tree_s)), flush=True)
+    if len(made) != PIX3D_SHAPES:
+        fail(f'preprocessing wrote {len(made)} of {PIX3D_SHAPES} shapes')
+    fps = fps_check(os.path.join(data, 'sampled_points'), card_line)
+
+    # the two-stage recipe on Pix3D, with a testlist of two images
+    testlist = os.path.join(root, 'testlist.lst')
+    with open(testlist, 'w') as f:
+        f.write('chair model000.model 0000\nchair model001.model 0001\n')
+    base = dict(dataset='datasets.Datasets.Pix3D', data_dir=root + '/',
+                catlist=['chair'], testlist_file=testlist,
+                output_dir=os.path.join(root, 'results') + '/', epochs=1,
+                save_every_epoch=1, test_every_epoch=1, train_batch_size=8,
+                seed=args.seed)
+    c1 = default_config(model='network.models.CoarseNet',
+                        exp_name='coarse_prediciton_Pix3D', **base)
+    if len(Pix3D(c1, 'train')) != PIX3D_SHAPES:
+        fail('the Pix3D reader did not find every preprocessed shape')
+    torch.manual_seed(args.seed + 8)
+    first = driver_run(c1, 'pix3d stage 1 (CoarseNet)', CoarseNetExecutor,
+                       stencil3d, fused_fc0)
+    _check_driver(first, NO_LAUNCHES, NO_LAUNCHES)
+    t0 = time.perf_counter()
+    split_coarse_checkpoint(os.path.join(c1.checkpoint_dir,
+                                         'best_model_train.ckpt'),
+                            c1.checkpoint_dir)
+    split_s = time.perf_counter() - t0
+    c2 = default_config(model='network.models.LIST', exp_name='list_Pix3D',
+                        warm_start=True, vox_res=128,
+                        sample_point_density=32768, remat=1,
+                        train_query_chunks=4, sdf_scale=10.0, eval_pred=True,
+                        **base)
+    torch.manual_seed(args.seed + 9)
+    second = driver_run(c2, 'pix3d stage 2 (LIST, warm start)', LISTExecutor,
+                        stencil3d, fused_fc0)
+    _check_driver(second, STEP_LAUNCHES, TEST_LAUNCHES)
+    files = {d: sorted(f for f in os.listdir(d) if f.endswith('.ckpt'))
+             for d in (c1.checkpoint_dir, c2.checkpoint_dir)}
+    scored = any(e['kind'] == 'testlist' and ('iou' in e['scores'] or
+                                              'chamfer_l2' in e['scores'])
+                 for e in second['events'])
+    want = {c1.checkpoint_dir: {'model_1.ckpt', 'best_model_train.ckpt',
+                                'best_IME_test.ckpt', 'best_PD_test.ckpt'},
+            c2.checkpoint_dir: {'model_1.ckpt', 'best_model_train.ckpt'}
+            | ({'best_model_test.ckpt'} if scored else set())}
+    for d, names in want.items():
+        if set(files[d]) != names:
+            fail(f'pix3d checkpoints in {d}: {files[d]}, expected '
+                 f'{sorted(names)}')
+    trained = LIST.from_config(c2)
+    ckpt.load_checkpoint(os.path.join(c2.checkpoint_dir, 'model_1.ckpt'),
+                         trained)
+    split = LIST.from_config(c2)
+    for name, fname in (('im_encoder', 'best_IME_test.ckpt'),
+                        ('point_decoder', 'best_PD_test.ckpt')):
+        ckpt.load_submodule(os.path.join(c1.checkpoint_dir, fname), split,
+                            name)
+    same = {name: all(torch.equal(a, b) for a, b in zip(
+        getattr(trained, name).parameters(),
+        getattr(split, name).parameters()))
+        for name in ('im_encoder', 'point_decoder')}
+    if not all(same.values()):
+        fail(f'pix3d: a frozen submodule moved in the warm-started epoch '
+             f'({same})')
+
+    # the sweep of the test split from stage 2's weights, fc_out's bias
+    # centred on the first test image's grid (as the sweep phase does) so
+    # every image has a surface to score; in a checkpoint of its own
+    c3 = default_config(model='network.models.LIST', dataset=base['dataset'],
+                        data_dir=base['data_dir'], catlist=['chair'],
+                        output_dir=base['output_dir'],
+                        exp_name='list_Pix3D_sweep', vox_res=128,
+                        sdf_scale=10.0, eval_pred=True, seed=args.seed)
+    test = Pix3D(c3, 'test')
+    info = test.datalist[0]
+    img = test.get_testdata(info['cat_id'], info['shape_id'],
+                            info['img_id'].split('.')[0])['rgb_image']
+    shift = float(np.median(LISTExecutor(c3, trained).predict_grid(
+        img, fetch_mode='grid'))) * c3.sdf_scale
+    with torch.no_grad():
+        trained.sdf_decoder.fc_out.bias -= shift
+    ckpt.save_checkpoint(0, trained, 0.5, os.path.join(c3.checkpoint_dir,
+                                                       c3.test_checkpoint))
+    del trained, split
+    torch.cuda.empty_cache()
+    sweep = sweep_run(c3, 'pix3d', stencil3d, fused_fc0, shapes=PIX3D_TEST)
+    want = dict(conv3x3x3=5 * PIX3D_TEST, conv3x3x3_dx=0, conv3x3x3_dk=0,
+                fused_stack_head=PIX3D_TEST, fused_fc0_mlp=0)
+    if sweep['launches'] != want or sweep['fresh_meshes'] != PIX3D_TEST:
+        fail(f'pix3d sweep: launches {sweep["launches"]} for '
+             f'{sweep["fresh_meshes"]} fresh images, expected {want}')
+    with open(os.path.join(HERE, sweep['csv'])) as f:
+        ids = [r[1] for r in csv.reader(f)][1:]
+    expect = [f'{d["shape_id"]}_{d["img_id"].split(".")[0]}'
+              for d in test.datalist] + ['Mean']
+    if ids != expect:
+        fail(f'pix3d sweep rows {ids}, expected {expect}')
+
+    rec = dict(card=card_line, shapes=PIX3D_SHAPES,
+               preprocess_s_per_mesh=pre_s,
+               fps_card_s_per_shape=fps['card_s_per_shape'],
+               fps_identical_shapes=fps['identical'],
+               fps_min_leading_equal=fps['min_leading_equal'],
+               fps_max_radius_rel_diff=fps['max_radius_rel_diff'],
+               fps_cpu_s_per_shape=fps['cpu_s_per_shape'],
+               run_fps_s_per_shape=fps['run_fps_s_per_shape'],
+               stage1=_stage(first), split_s=split_s, stage2=_stage(second),
+               stage2_launches=second['launches'],
+               sweep_wall_s=sweep['wall_s'],
+               sweep_device_phase_s=sweep['device_phase_s'],
+               sweep_fresh_meshes_per_s=sweep['fresh_meshes_per_s'],
+               sweep_peak_device_gb=sweep['peak_device_gb'],
+               wall_s=time.perf_counter() - t_phase)
+    print('pix3d', json.dumps(rec), flush=True)
+    return dict(rec, fps=fps, stage1_run=first, stage2_run=second,
+                checkpoints=files, frozen_identical=same, sweep=sweep,
+                fc_out_shift=-shift)
+
+
 # ---- the distributed phase ----------------------------------------------------
 
 DIST_WORLD = 2  # gloo ranks on the one card (NCCL refuses two on one GPU)
@@ -1220,7 +1484,7 @@ def _csv_scores(path):
 
 
 def dist_phase(args, stencil3d, fused_fc0, card_line, sweep):
-    """The distributed phase (module docstring, phase 8); ``sweep`` is
+    """The distributed phase (module docstring, phase 9); ``sweep`` is
     sweep_phase's record: its checkpoint and its default-head 1-process
     sweep of the same 8 shapes, which the sharded sweep is held to."""
     from list_tpu_torch.config import default_config
@@ -1547,6 +1811,11 @@ def main():
     driver_launches = driver['stage2']['launches']
     torch.cuda.empty_cache()
 
+    # ---- Pix3D: raw meshes -> preprocessing -> FPS -> train() -> sweep ----
+    pix3d = pix3d_phase(args, stencil3d, fused_fc0, card_line)
+    pix3d_launches = pix3d['stage2_launches']
+    torch.cuda.empty_cache()
+
     # ---- distributed phase: 2 gloo ranks, 1 NCCL rank, the split decode ---
     dist = dist_phase(args, stencil3d, fused_fc0, card_line, sweep)
 
@@ -1562,6 +1831,7 @@ def main():
              launches=train_launches['conv3x3x3'],
              dx_launches=train_launches['conv3x3x3_dx'],
              driver_launches=driver_launches['conv3x3x3'],
+             pix3d_launches=pix3d_launches['conv3x3x3'],
              per=conv_train['unit'], max_abs_err=conv_train['max_abs_err'],
              ms=conv_train['ms'], plain_ms=conv_train['plain_ms'],
              bound_ms=conv_train['bound_ms'],
@@ -1570,7 +1840,8 @@ def main():
         dict(name='conv3x3x3_dk', route='cuda', source=stencil3d.DK_SOURCE,
              replaces=stencil3d.DK_REPLACES,
              launches=train_launches['conv3x3x3_dk'],
-             driver_launches=driver_launches['conv3x3x3_dk'], per=dk['unit'],
+             driver_launches=driver_launches['conv3x3x3_dk'],
+             pix3d_launches=pix3d_launches['conv3x3x3_dk'], per=dk['unit'],
              max_abs_err=dk['max_abs_err'], ms=dk['ms'],
              plain_ms=dk['plain_ms'], bound_ms=dk['bound_ms'],
              bound_by=dk['bound_by'], library_ms=dk['library_ms']),
@@ -1578,6 +1849,7 @@ def main():
              replaces=fused_fc0.REPLACES,
              launches=launches['fused_stack_head'],
              driver_launches=driver_launches['fused_stack_head'],
+             pix3d_launches=pix3d_launches['fused_stack_head'],
              per='request (n = 128^3)',
              max_abs_err=head['max_abs_err'], ms=head['ms'],
              plain_ms=head['plain_ms'], bound_ms=head['bound_ms'],
@@ -1596,7 +1868,7 @@ def main():
                   small_input_err=ref_err, small_input_k4_err=k4_err,
                   sweep=sweep, train_steps=steps,
                   train_launches=train_launches, gradient_check=gcheck,
-                  stage1=stage1, driver=driver, dist=dist,
+                  stage1=stage1, driver=driver, pix3d=pix3d, dist=dist,
                   total_s=time.perf_counter() - t_start)
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),

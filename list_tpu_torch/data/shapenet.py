@@ -1,7 +1,8 @@
 """ShapeNet datasets: IM2PointFarthest (stage 1) and IM2SDF (stage 2),
-copied from ``list_tpu/data/shapenet.py`` apart from imports: h5py and PIL
-are imported where a file is opened, and ``quantize_occupancy`` is the
-one in ``data/synthetic.py``.
+copied from ``list_tpu/data/shapenet.py`` apart from imports: PIL is
+imported where an image is read, HDF5 files go through ``utils/h5.py``
+(the port does not need h5py), and ``quantize_occupancy`` is the one
+in ``data/synthetic.py``.
 
 Same on-disk artifact formats as the reference so preprocessed ShapeNet data
 is reusable unchanged (datasets/Datasets.py:56-304):
@@ -34,6 +35,7 @@ import numpy as np
 
 from list_tpu_torch.data.synthetic import quantize_occupancy
 from list_tpu_torch.data.transforms import ImageTransform, to_float
+from list_tpu_torch.utils import h5
 from list_tpu_torch.utils.meshio import load_mesh
 
 _h5_lock = threading.Lock()
@@ -101,22 +103,20 @@ class IM2PointFarthest(ShapeNetBase):
               f'{status} shapes')
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        import h5py
         data = self.datalist[index]
         cam_id = int(self._gen.integers(0, self.viewnum))
         rgb = self.read_rgb(data['rgba_dir'], cam_id)
-        with _h5_lock, h5py.File(data['h5_fn'], 'r') as f:
+        with _h5_lock, h5.File(data['h5_fn'], 'r') as f:
             pc = f['points_5000'][:]
         return {'rgb_image': self.transforms(rgb, self._gen),
                 'pc': pc.astype(np.float32)}
 
     def get_testdata(self, cat_id: str, shape_id: str, cam_id):
-        import h5py
         rgb_fn = os.path.join(self.config.image_dir, cat_id, shape_id, 'easy/')
         h5_fn = os.path.join(self.config.h5_dir, cat_id, shape_id,
                              'farthest_pointclouds.h5')
         rgb = self.read_rgb(rgb_fn, cam_id)
-        with h5py.File(h5_fn, 'r') as f:
+        with h5.File(h5_fn, 'r') as f:
             pc = f['points_5000'][:]
         return (to_float(rgb)[None], pc.astype(np.float32)[None])
 
@@ -155,11 +155,10 @@ class IM2SDF(ShapeNetBase):
         return f'res_{self.vox_res}_points_{self.coarse_points}'
 
     def _load_occ(self, h5_fn: str, pc: np.ndarray) -> np.ndarray:
-        import h5py
         occ_file = os.path.join(os.path.dirname(h5_fn), 'occupancies.h5')
         key = self._occ_key()
         with _h5_lock:
-            with h5py.File(occ_file, 'a') as f:
+            with h5.File(occ_file, 'a') as f:
                 if key not in f.keys():
                     occ = quantize_occupancy(pc, self.config.bb_min,
                                              self.config.bb_max, self.vox_res)
@@ -171,11 +170,10 @@ class IM2SDF(ShapeNetBase):
     def ensure_occupancies(self) -> None:
         """Precompute all occupancy caches up-front (removes the reference's
         h5-write-during-training hazard, Datasets.py:242-252)."""
-        import h5py
         for d in self.datalist:
             pc_h5 = os.path.join(os.path.dirname(d['h5_fn']),
                                  'farthest_pointclouds.h5')
-            with h5py.File(pc_h5, 'r') as f:
+            with h5.File(pc_h5, 'r') as f:
                 pc = f['points_5000'][:]
             self._load_occ(d['h5_fn'], pc)
 
@@ -189,19 +187,18 @@ class IM2SDF(ShapeNetBase):
         return np.concatenate(samples, axis=0)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        import h5py
         data = self.datalist[index]
         cam_id = int(self._gen.integers(0, self.viewnum))
         rgb = self.read_rgb(data['rgba_dir'], cam_id)
 
-        with _h5_lock, h5py.File(data['h5_fn'], 'r') as f:
+        with _h5_lock, h5.File(data['h5_fn'], 'r') as f:
             samples = self.sample_queries(f, self._gen)
         points = samples[:, :3].astype(np.float32)
         values = samples[:, 3].astype(np.float32)
 
         pc_h5 = os.path.join(os.path.dirname(data['h5_fn']),
                              'farthest_pointclouds.h5')
-        with _h5_lock, h5py.File(pc_h5, 'r') as f:
+        with _h5_lock, h5.File(pc_h5, 'r') as f:
             pc = f['points_5000'][:]
 
         occ = self._load_occ(data['h5_fn'], pc)

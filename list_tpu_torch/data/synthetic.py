@@ -6,17 +6,21 @@ imports).
 interface ('rgb_image', 'points', 'values', 'occ', 'pc'), for train smoke
 runs without ShapeNet on disk; ``generate_synthetic_shapenet`` writes a
 miniature ShapeNet-format tree for the on-disk readers and the drivers
-(h5py and PIL imported there).  ``quantize_occupancy`` is the JAX
-package's ``list_tpu/data/shapenet.py`` function.
+(PIL imported there; HDF5 files through ``utils/h5.py``).
+``quantize_occupancy`` is the JAX package's ``list_tpu/data/shapenet.py``
+function.  ``generate_synthetic_pix3d`` (the port's own) writes a raw
+Pix3D-format tree for the preprocessing and the Pix3D reader.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import Dict, List
 
 import numpy as np
 
+from list_tpu_torch.utils import h5
 from list_tpu_torch.utils.meshio import Mesh
 
 
@@ -168,7 +172,6 @@ def generate_synthetic_shapenet(root: str, cats=('03001627',),
                                 seed: int = 333) -> Dict[str, List[str]]:
     """Write a miniature ShapeNet-format tree usable by IM2SDF /
     IM2PointFarthest / the train and test drivers.  Returns {cat: [ids]}."""
-    import h5py
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -195,7 +198,7 @@ def generate_synthetic_shapenet(root: str, cats=('03001627',),
             mesh.export(os.path.join(mesh_dir, 'isosurf_scaled.obj'))
 
             surface = mesh.sample(n_surface, rng=rng)
-            with h5py.File(os.path.join(h5_dir, 'sampled_points.h5'),
+            with h5.File(os.path.join(h5_dir, 'sampled_points.h5'),
                            'w') as f:
                 f.create_dataset('grid_points', data=surface)
                 for s in sigmas:
@@ -204,7 +207,7 @@ def generate_synthetic_shapenet(root: str, cats=('03001627',),
                     f.create_dataset(f'query_points_sigma_{s}',
                                      data=np.concatenate(
                                          [q, sdf[:, None]], 1))
-            with h5py.File(os.path.join(h5_dir, 'farthest_pointclouds.h5'),
+            with h5.File(os.path.join(h5_dir, 'farthest_pointclouds.h5'),
                            'w') as f:
                 f.create_dataset('points_5000', data=surface[
                     rng.choice(len(surface), 5000)])
@@ -222,3 +225,57 @@ def generate_synthetic_shapenet(root: str, cats=('03001627',),
             for sid in ids:
                 f.write(f'{cat} {sid} 00\n')
     return out
+
+
+def generate_synthetic_pix3d(root: str, cat: str = 'chair',
+                             n_shapes: int = 8, n_test: int = 4,
+                             img_res: int = 224, mesh_res: int = 64,
+                             seed: int = 333) -> List[str]:
+    """Write a raw Pix3D-format tree of synthetic shapes, one image each,
+    for ``data/preprocess.py`` and then the Pix3D reader (layout:
+    ``data/pix3d.py``):
+
+    - ``meshes/<cat>/model<i>.model/model.obj``: the raw mesh (scaled by
+      1.7 and moved off the origin), where the preprocessor's
+      ``<cat>/<folder>/<file>`` path gives the reader's model folder (the
+      model path's last two parts joined by '.');
+    - ``data/isosurface/<cat>/model<i>.model/mesh_org.ply``: the same mesh,
+      which the reader requires beside the preprocessor's
+      ``isosurf_scaled.obj``;
+    - ``data/img/<cat>/model<i>.model/<i:04d>.npy``: one uint8 render;
+    - ``data/pix3d.json`` and ``splits/{train,test}.json``: every image in
+      the train split, the first ``n_test`` in the test split.
+
+    Returns the raw meshes' paths, the preprocessor's inputs."""
+    from list_tpu_torch.utils.meshio import write_ply
+
+    rng = np.random.RandomState(seed)
+    data = os.path.join(root, 'data')
+    metadatas, names, paths = [], [], []
+    for i in range(n_shapes):
+        shape = SyntheticShape(rng)
+        mesh = shape.mesh(mesh_res).apply_scale(1.7).apply_translation(
+            rng.uniform(-0.5, 0.5, 3))
+        folder, img_name = f'model{i:03d}.model', f'{i:04d}'
+        dirs = [os.path.join(root, 'meshes', cat, folder)] + [
+            os.path.join(data, sub, cat, folder)
+            for sub in ('isosurface', 'img')]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+        paths.append(os.path.join(dirs[0], 'model.obj'))
+        mesh.export(paths[-1])
+        write_ply(os.path.join(dirs[1], 'mesh_org.ply'), mesh.vertices,
+                  mesh.faces)
+        np.save(os.path.join(dirs[2], img_name + '.npy'),
+                (shape.render(img_res) * 255).astype(np.uint8))
+        metadatas.append({'category': cat,
+                          'img': f'img/{cat}/{img_name}.png',
+                          'model': f'model/{cat}/model{i:03d}/model.obj'})
+        names.append(f'img/{img_name}.png')
+    with open(os.path.join(data, 'pix3d.json'), 'w') as f:
+        json.dump(metadatas, f)
+    os.makedirs(os.path.join(root, 'splits'), exist_ok=True)
+    for mode, split in (('train', names), ('test', names[:n_test])):
+        with open(os.path.join(root, 'splits', mode + '.json'), 'w') as f:
+            json.dump(split, f)
+    return paths

@@ -2,8 +2,7 @@
 
 The same reference dotted paths and short names as the JAX package, each
 pointing at the port's class, so an experiment command runs under either
-package.  A class the port does not have yet resolves to its future path
-and ``get_class`` raises saying so.
+package.
 """
 
 from __future__ import annotations
@@ -32,11 +31,6 @@ _ALIASES: Dict[str, str] = {
     'Synthetic': 'list_tpu_torch.data.SyntheticSDFDataset',
 }
 
-# Paths of classes not ported yet -> where the port plans them (ROADMAP).
-_NOT_PORTED: Dict[str, str] = {
-    'list_tpu_torch.data.Pix3D': 'the Pix3D reader',
-}
-
 
 def resolve(kls: str) -> str:
     return _ALIASES.get(kls, kls)
@@ -48,9 +42,6 @@ def get_class(kls: str) -> Any:
     Accepts reference-style paths (``network.models.LIST``) and the port's
     (``list_tpu_torch.models.LIST``)."""
     kls = resolve(kls)
-    if kls in _NOT_PORTED:
-        raise NotImplementedError(f'{kls} is not ported yet '
-                                  f'({_NOT_PORTED[kls]})')
     module_name, _, attr = kls.rpartition('.')
     if not module_name:
         raise ValueError(f'Expected dotted path, got {kls!r}')

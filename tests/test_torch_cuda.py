@@ -1,6 +1,7 @@
-"""CUDA kernels of the port against their plain PyTorch versions, on the
-card.  They skip where torch has no CUDA device.  This file imports no JAX
-so it runs on a machine with only PyTorch:
+"""CUDA kernels of the port against their plain PyTorch versions, and the
+farthest-point sampling on the card against the CPU.  They skip where
+torch has no CUDA device.  This file imports no JAX so it runs on a
+machine with only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -225,3 +226,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     args[0] = [s.transpose(0, 1) for s in args[0]]  # (n, 7, C): not t-major
     with pytest.raises(ValueError):
         fused_fc0.fused_fc0_mlp(*args)
+
+
+@pytest.mark.parametrize('n,k', [(1200, 256), (20000, 2000)])
+def test_fps_on_the_card_is_the_cpus(cuda, n, k):
+    """The port's farthest-point sampling (plain PyTorch, no kernel of its
+    own) picks the same indices on the card as on the CPU: its squared
+    distance rounds alike on both (ops/fps.py)."""
+    from list_tpu_torch.ops.fps import farthest_point_sampling
+    pts = torch.as_tensor(np.random.RandomState(n + k).randn(n, 3),
+                          dtype=torch.float32)
+    got = farthest_point_sampling(pts.to(cuda), k)
+    assert got.device.type == 'cuda'
+    torch.testing.assert_close(got.cpu(), farthest_point_sampling(pts, k),
+                               rtol=0, atol=0)

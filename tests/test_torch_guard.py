@@ -15,12 +15,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_and_chip_smoke_import_no_jax():
     """Importing the port, its entry scripts infer_torch.py,
-    train_torch.py, evaluation/evaluate_torch.py and
-    evaluation/evaluate_gather_torch.py, and everything chip_smoke.py
-    imports, loads no
-    jax/flax/optax module and no module of the JAX package (``list_tpu``
+    train_torch.py, evaluation/evaluate_torch.py,
+    evaluation/evaluate_gather_torch.py, preprocessing/preprocess_torch.py
+    and preprocessing/farthest_pointcloud_torch.py, and everything
+    chip_smoke.py imports, loads no
+    jax/flax/optax module, no module of the JAX package (``list_tpu``
     or ``list_tpu.*`` -- ``list_tpu_torch`` itself must not trip the
-    check)."""
+    check) and no h5py (the port's HDF5 files go through
+    ``list_tpu_torch/utils/h5.py``)."""
     code = (
         'import sys, ast\n'
         'import list_tpu_torch, list_tpu_torch.models, list_tpu_torch.train\n'
@@ -44,8 +46,13 @@ def test_port_and_chip_smoke_import_no_jax():
         'import train_torch\n'
         'import list_tpu_torch.parallel.multihost\n'
         'import list_tpu_torch.parallel.mesh, list_tpu_torch.eval.offline\n'
+        'import list_tpu_torch.data.pix3d, list_tpu_torch.data.preprocess\n'
+        'import list_tpu_torch.ops.fps, list_tpu_torch.ops.projection\n'
+        'import list_tpu_torch.utils.h5\n'
         'sys.path.insert(0, "evaluation")\n'
         'import evaluate_torch, evaluate_gather_torch\n'
+        'sys.path.insert(0, "preprocessing")\n'
+        'import preprocess_torch, farthest_pointcloud_torch\n'
         'src = open("chip_smoke.py").read()\n'
         'for node in ast.walk(ast.parse(src)):\n'
         '    if isinstance(node, ast.Import):\n'
@@ -54,7 +61,7 @@ def test_port_and_chip_smoke_import_no_jax():
         '        __import__(node.module)\n'
         'bad = sorted(m for m in sys.modules\n'
         '             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",\n'
-        '                                    "list_tpu"))\n'
+        '                                    "list_tpu", "h5py"))\n'
         'print("BAD", bad)\n'
         'sys.exit(1 if bad else 0)\n')
     env = dict(os.environ, PYTHONPATH=REPO)

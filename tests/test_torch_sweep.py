@@ -256,18 +256,14 @@ def test_msgpack_reader_matches_flax(sweep, monkeypatch):
 
 def test_registry_resolves_every_reference_path_to_the_port():
     """Every alias of the JAX package's registry names the same class path
-    under list_tpu_torch; the ported ones import, the others raise that
-    they are not ported yet."""
+    under list_tpu_torch, and every one imports the port's class."""
     ported = {'LIST', 'IM2SDF', 'SyntheticSDFDataset', 'LISTExecutor',
-              'CoarseNet', 'CoarseNetExecutor', 'IM2PointFarthest'}
+              'CoarseNet', 'CoarseNetExecutor', 'IM2PointFarthest', 'Pix3D'}
     for name, target in j_registry._ALIASES.items():
         got = registry.resolve(name)
         assert got == 'list_tpu_torch' + target[len('list_tpu'):]
-        if got.rsplit('.', 1)[1] in ported:
-            assert registry.get_class(name).__module__.startswith(
-                'list_tpu_torch.')
-        else:
-            with pytest.raises(NotImplementedError, match='not ported'):
-                registry.get_class(name)
+        assert got.rsplit('.', 1)[1] in ported
+        assert registry.get_class(name).__module__.startswith(
+            'list_tpu_torch.')
     assert registry.executor_for('network.models.LIST') == \
         'list_tpu_torch.train.executors.LISTExecutor'
