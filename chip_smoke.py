@@ -13,9 +13,11 @@ Run from the repository root.  Phases (any failure exits non-zero):
    plain version and one PyTorch library call computing the same function
    (timed here only; the port never calls it): K2 at the inference shapes
    (batch 1) and the train step's forward and dx shapes (batch 8), K3 at
-   the train step's shapes, K1 and K4 at the dense decode's; and the
-   differentiable conv3x3x3's dx and dk against autograd through the plain
-   version.
+   the train step's shapes, K1 and K4 at the dense decode's (K4's
+   staging path per scale printed, and K4 also held on the same inputs
+   one bf16 into their buffers and cut to a ragged n, off its vector
+   paths); and the differentiable conv3x3x3's dx and dk against autograd
+   through the plain version.
 4. Inference path: the full-width default LIST (vox_res 128) with seeded
    random weights serves ``--requests`` seeded 224x224 images through
    ``LISTExecutor.test(..., eval_pred=True)`` (dense 128^3 SDF -> marching
@@ -298,17 +300,27 @@ def _library_head(a, w1cat, adds, q, tail):
     return h @ w4 + b4.to(bf)
 
 
-def _head_row(name, kernel, plain, library, args, shape, bound):
-    """A fused head against its plain version (|kernel - plain| <=
-    1e-2 + 1e-2 |plain|) and timed beside it and the library chain."""
+def _head_check(kernel, plain, args):
+    """(output, max |kernel - plain|, within 1e-2 + 1e-2 |plain| and
+    finite, max |plain|) of a fused head on the card."""
     y = kernel(*args)
     torch.cuda.synchronize()
     ref = plain(*args)
     err = float((y - ref).abs().max())
     tol_ok = bool(((y - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all())
-    ok = bool(torch.isfinite(y).all()) and tol_ok
-    row = dict(shape=shape, max_abs_err=err, tol='1e-2 + 1e-2*|plain|',
-               ok=ok, max_abs_plain=float(ref.abs().max()),
+    return (y, err, bool(torch.isfinite(y).all()) and tol_ok,
+            float(ref.abs().max()))
+
+
+def _head_row(name, kernel, plain, library, args, shape, bound,
+              after=dict):
+    """A fused head against its plain version (|kernel - plain| <=
+    1e-2 + 1e-2 |plain|) and timed beside it and the library chain;
+    ``after()``'s keys, read right after the checked launch, join the
+    row."""
+    _, err, ok, max_plain = _head_check(kernel, plain, args)
+    row = dict(shape=shape, **after(), max_abs_err=err,
+               tol='1e-2 + 1e-2*|plain|', ok=ok, max_abs_plain=max_plain,
                ms=time_ms(lambda: kernel(*args), 10),
                plain_ms=time_ms(lambda: plain(*args), 3, 1),
                library_ms=time_ms(library, 10), bound_ms=bound[0],
@@ -363,13 +375,59 @@ def mlp_phase(dev, fused_fc0, n: int):
         a = torch.cat([s.permute(1, 0, 2).reshape(n, -1) for s in stacks], 1)
         return _library_head(a, w1cat, (percep,), q, tail)
 
-    return _head_row(
-        'fused_fc0_mlp', fused_fc0.fused_fc0_mlp,
-        fused_fc0.fused_fc0_mlp_plain, library,
-        (stacks, percep, q, w1) + tail,
+    kernel, plain = fused_fc0.fused_fc0_mlp, fused_fc0.fused_fc0_mlp_plain
+    args = (stacks, percep, q, w1) + tail
+    row = _head_row(
+        'fused_fc0_mlp', kernel, plain, library, args,
         f'n={n} C={list(MLP_CHANNELS)} t-major',
         fused_fc0.bound_ms(n, [7 * c for c in MLP_CHANNELS], coarse_bytes=0,
-                           q_cols=3))
+                           q_cols=3),
+        after=lambda: dict(staging=list(fused_fc0.mlp_staging)))
+    row['cases'] = mlp_cases(fused_fc0, args, n)
+    if row['staging'] != ['taps', 'rows', 'rows', 'rows']:
+        fail(f'fused_fc0_mlp staged the production stacks by '
+             f'{row["staging"]}, not by its vector paths')
+    return row
+
+
+def _offset(t, k=1):
+    """t's values in a contiguous view k elements into a larger buffer."""
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    return buf[k:].view(t.shape).copy_(t)
+
+
+def mlp_cases(fused_fc0, args, n):
+    """K4's other staging paths on the production inputs: every stack one
+    bf16 into its buffer (no 16-byte aligned base: every scale 'scalar'),
+    and the first 64 x 150 + 37 queries (n % 8 != 0: the C = 1 scale
+    'scalar'), each against its plain version; both stage the same tile as
+    the production launch, so their outputs must be its rows bit for
+    bit."""
+    kernel, plain = fused_fc0.fused_fc0_mlp, fused_fc0.fused_fc0_mlp_plain
+    y = kernel(*args)
+    m = 64 * 150 + 37
+    cases = []
+    for label, a, rows in (
+            (f'n={n} base +1 bf16', ([_offset(s) for s in args[0]],)
+             + args[1:], n),
+            (f'n={m}', ([s[:, :m].contiguous() for s in args[0]],
+                        args[1][:m].contiguous(), args[2][:m].contiguous())
+             + args[3:], m)):
+        got, err, ok, _ = _head_check(kernel, plain, a)
+        case = dict(case=label, staging=list(fused_fc0.mlp_staging),
+                    max_abs_err=err, ok=ok,
+                    same_as_production=bool(torch.equal(got, y[:rows])),
+                    ms=time_ms(lambda: kernel(*a), 5))
+        print('kernel fused_fc0_mlp case', json.dumps(case), flush=True)
+        cases.append(case)
+        del a, got
+    if cases[0]['staging'] != ['scalar'] * 4 \
+            or cases[1]['staging'] != ['scalar', 'rows', 'rows', 'rows']:
+        fail(f'fused_fc0_mlp took staging paths {cases}')
+    if not all(c['ok'] and c['same_as_production'] for c in cases):
+        fail('fused_fc0_mlp disagrees with its plain version or with its '
+             'production launch off the vector staging paths')
+    return cases
 
 
 def reset_counts(stencil3d, fused_fc0) -> None:
@@ -1857,7 +1915,8 @@ def main():
         dict(name='fused_fc0_mlp', route='cuda', source=fused_fc0.MLP_SOURCE,
              replaces=fused_fc0.MLP_REPLACES,
              launches=sweep['sweeps'][0]['launches']['fused_fc0_mlp'],
-             per=mlp['unit'], max_abs_err=mlp['max_abs_err'], ms=mlp['ms'],
+             staging=mlp_row['staging'], per=mlp['unit'],
+             max_abs_err=mlp['max_abs_err'], ms=mlp['ms'],
              plain_ms=mlp['plain_ms'], bound_ms=mlp['bound_ms'],
              bound_by=mlp['bound_by'], library_ms=mlp['library_ms']),
     ]

@@ -57,6 +57,13 @@ D1, D2, D3 = 512, 256, 256
 # K1 and K4
 launches = 0
 mlp_launches = 0
+# K4's staging path of each scale at its last launch, chosen by the C
+# launcher: 'rows' (16-byte cp.async of each tap row: C % 8 == 0 with C / 8
+# a power of two), 'taps' (C = 1 with n % 8 == 0: 16-byte loads of a tap's
+# rows, transposed), both only from a 16-byte aligned base; else 'scalar'
+# (2-byte loads, in the same kernel)
+STAGING_PATHS = ('scalar', 'rows', 'taps')
+mlp_staging: tuple = ()
 
 
 def _tail(fc0, dt, w2, b2, w3, b3, w4, b4) -> torch.Tensor:
@@ -203,7 +210,7 @@ def fused_fc0_mlp(stacks: Sequence[torch.Tensor], percep: torch.Tensor,
                   w2: torch.Tensor, b2: torch.Tensor,
                   w3: torch.Tensor, b3: torch.Tensor,
                   w4: torch.Tensor, b4: torch.Tensor) -> torch.Tensor:
-    global mlp_launches
+    global mlp_launches, mlp_staging
     stacks = list(stacks)
     if stacks[0].device.type == 'cpu':
         return fused_fc0_mlp_plain(stacks, percep, qxyz, w1_scales, w1_xyz,
@@ -226,17 +233,19 @@ def fused_fc0_mlp(stacks: Sequence[torch.Tensor], percep: torch.Tensor,
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                     ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                   + [ctypes.c_void_p] * 10)
+                   + [ctypes.c_void_p] * 11)
     fn.restype = ctypes.c_int
     ptrs = (ctypes.c_void_p * len(stacks))(*[t.data_ptr() for t in stacks])
     cs = (ctypes.c_int * len(stacks))(*chs)
+    staging = (ctypes.c_int * len(stacks))()
     rc = fn(ptrs, cs, len(stacks), n, percep.data_ptr(), qxyz.data_ptr(),
             qxyz.shape[1], w1cat.data_ptr(), w1cat.shape[0], wxyz.data_ptr(),
             b1v.data_ptr(), w2m.data_ptr(), b2v.data_ptr(), w3m.data_ptr(),
             b3v.data_ptr(), w4v.data_ptr(), b4v.data_ptr(), out.data_ptr(),
-            build.stream_handle(dev))
+            staging, build.stream_handle(dev))
     build.check(rc, 'fused_fc0_mlp')
     mlp_launches += 1
+    mlp_staging = tuple(STAGING_PATHS[p] for p in staging)
     return out
 
 

@@ -170,13 +170,19 @@ def test_fused_stack_head_kernel_matches_plain(cuda, n, coarse, Ks, offset):
     torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
 
 
-def _mlp_args(n, channels, dev, seed=0):
+def _mlp_args(n, channels, dev, seed=0, offset=0):
+    """K4's arguments; ``offset`` > 0 starts each stack that many bf16
+    elements into its buffer, so no stack's base is 16-byte aligned."""
     rng = np.random.RandomState(seed)
     bf = torch.bfloat16
     t = lambda a, dt=torch.float32: torch.as_tensor(  # noqa: E731
         np.ascontiguousarray(a, np.float32)).to(dev, dt)
     rows = 7 * sum(channels)
-    stacks = [t(rng.rand(7, n, c), bf) for c in channels]
+    stacks = []
+    for c in channels:
+        buf = torch.empty(7 * n * c + offset, dtype=bf, device=dev)
+        stacks.append(buf[offset:].view(7, n, c).copy_(t(rng.rand(7, n, c),
+                                                         bf)))
     w1 = [t(rng.uniform(-1, 1, (7 * c, 512)) / np.sqrt(rows), bf)
           for c in channels]
     return (stacks, t(rng.randn(n, 512), bf), t(rng.uniform(-1, 1, (n, 3))),
@@ -188,18 +194,43 @@ def _mlp_args(n, channels, dev, seed=0):
             t(rng.uniform(-1, 1, (256, 1)) / 16.0, bf), t(rng.randn(1)))
 
 
-@pytest.mark.parametrize('n', [64, 1000])
-@pytest.mark.parametrize('channels', [(1, 16, 32, 64), (1,), (3, 5)])
-def test_fused_fc0_mlp_kernel_matches_plain(cuda, n, channels):
+K4_CS = (1, 16, 32, 64)  # the production scales
+K4_VEC = ('taps', 'rows', 'rows', 'rows')
+# (n, channels, offset, the staging path of each scale): the production
+# scales at one tile, a ragged 16 tiles, 128 tiles, and K1's 151 tiles
+# with a ragged tail of 37 and n = 1,003 (n % 8 != 0: the C = 1 scale
+# scalar); C = 1 alone; odd channels; C = 8 (a 16-byte zero chunk pads
+# 56 columns to 64) beside C = 24 (C / 8 not a power of two: scalar); and
+# the production scales one bf16 into their buffers (every scale scalar)
+MLP_CASES = [
+    (64, K4_CS, 0, K4_VEC), (1000, K4_CS, 0, K4_VEC),
+    (8192, K4_CS, 0, K4_VEC),
+    (64 * 150 + 37, K4_CS, 0, ('scalar',) + K4_VEC[1:]),
+    (1003, K4_CS, 0, ('scalar',) + K4_VEC[1:]),
+    (64, (1,), 0, ('taps',)), (1000, (1,), 0, ('taps',)),
+    (64, (3, 5), 0, ('scalar',) * 2), (1000, (3, 5), 0, ('scalar',) * 2),
+    (1000, (8, 24), 0, ('rows', 'scalar')),
+    (1000, K4_CS, 1, ('scalar',) * 4),
+    (64 * 150 + 37, K4_CS, 1, ('scalar',) * 4)]
+
+
+@pytest.mark.parametrize(
+    'n,channels,offset,staging', MLP_CASES,
+    ids=[f'{n}-{"-".join(map(str, cs))}' + ('-unaligned' if o else '')
+         for n, cs, o, _ in MLP_CASES])
+def test_fused_fc0_mlp_kernel_matches_plain(cuda, n, channels, offset,
+                                            staging):
     """K4 against fused_fc0_mlp_plain: bf16 operands, f32 accumulation on
     both sides, the C = 1 scale's products exact on both; a different f32
     sum order can flip one bf16 rounding of a ReLU output (2^-8 relative):
-    |kernel - plain| <= 1e-2 + 1e-2 |plain|."""
-    args = _mlp_args(n, channels, cuda)
+    |kernel - plain| <= 1e-2 + 1e-2 |plain|.  The launch reports the
+    staging path it took for each scale."""
+    args = _mlp_args(n, channels, cuda, offset=offset)
     before = fused_fc0.mlp_launches
     got = fused_fc0.fused_fc0_mlp(*args)
     torch.cuda.synchronize()
     assert fused_fc0.mlp_launches == before + 1
+    assert fused_fc0.mlp_staging == staging
     ref = fused_fc0.fused_fc0_mlp_plain(*args)
     torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
 
