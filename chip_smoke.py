@@ -32,16 +32,34 @@ Run from the repository root.  Phases (any failure exits non-zero):
    deleting 4 of the 8 cached meshes, under the default head (K1) with
    ``--infer_batch 2``; launch counts, the CSV and its metrics asserted
    per sweep.  Before it, the band fetch and the grid fetch of one image
-   give identical meshes on the card.
+   give identical meshes on the card.  The sweep's device calls return
+   without waiting for the card and the fetch pool copies each result on
+   a side stream once its CUDA event has passed; each call's encode_s and
+   decode_s come from its events, and each ``sweep`` line prints the
+   first and the later decode_s and, beside this run's device phase and
+   fresh meshes/s, those of the synchronized fetch it replaced.
 6. Train path: the full-width LIST (vox_res 128, batch 8 x 32,768 queries,
    remat, 4 query chunks) with seeded random weights takes 1 warm and
    3 timed ``LISTExecutor.train`` steps on batches of the synthetic
    dataset; losses, step_s and peak device memory per step, and the
-   per-step launch counts asserted.  A small input (vox_res 32, batch 2,
-   1,024 queries, full widths) checks one ``LISTExecutor.train`` step's
-   losses, every gradient, the updated BatchNorm statistics and the Adam
-   update against the CPU plain path.
-7. Training driver: the full-width CoarseNet (ResNet18 at 224^2, TreeGCN
+   per-step launch counts asserted.  The same cell at
+   ``--remat_save_samples`` 0, 1 and 2 from the same weights and batches
+   (1 warm and 2 timed steps each, step_s and peak memory as the port
+   runs by default; then 2 steps each with deterministic algorithms,
+   where the losses, parameters and BatchNorm statistics must agree with
+   level 0's within the CPU remat test's tolerances).  A small input (vox_res 32,
+   batch 2, 1,024 queries, full widths) checks one ``LISTExecutor.train``
+   step's losses, every gradient, the updated BatchNorm statistics and the
+   Adam update against the CPU plain path.
+7. Overfit gate (``tools/torch_overfit_chip.py``): the same full-width
+   LIST trains 400 steps at batch 4 x 32,768 queries on one analytic
+   sphere, then ``predict_grid`` (K1, bf16 wire, band fetch), marching
+   cubes and the containment IoU on 200,000 points; the gate (finite
+   losses, the final sdf_loss under half the first, more than 10
+   vertices, IoU > 0.7) and the launches of every step (K2 14, of which
+   dx 4, K3 5) and of the mesh (K2 5, K1 1) asserted; one ``overfit``
+   line.
+8. Training driver: the full-width CoarseNet (ResNet18 at 224^2, TreeGCN
    to 4,096 points) takes 1 warm and 3 timed ``CoarseNetExecutor.train``
    steps at batch 16 (step_s, peak memory, the Chamfer loss), and one small
    step is held against the CPU in f32 and f64; then ``trainer.train``
@@ -52,7 +70,7 @@ Run from the repository root.  Phases (any failure exits non-zero):
    counts asserted per step (K2 14, K3 5) and per testlist shape (K2 5,
    K1 1), the checkpoint files the driver writes, and the frozen
    submodules bit-identical to the split after the warm-started epoch.
-8. Pix3D phase, under ``build/chip_smoke_pix3d/``: 8 synthetic shapes in
+9. Pix3D phase, under ``build/chip_smoke_pix3d/``: 8 synthetic shapes in
    a raw Pix3D tree (raw meshes, one 224x224 render a shape, pix3d.json,
    train and test splits of 8 and 4 images) go through the port's
    preprocessing at the published settings (``preprocess.run``, 50,000
@@ -70,7 +88,7 @@ Run from the repository root.  Phases (any failure exits non-zero):
    stage 2's weights (fc_out's bias centred on the first test image's
    grid), K2 5 and K1 1 a fresh image and one CSV row per image, named
    ``<model folder>_<image>``.  One ``pix3d`` JSON line sums it up.
-9. Distributed phase (``list_tpu_torch.parallel``), under
+10. Distributed phase (``list_tpu_torch.parallel``), under
    ``build/chip_smoke_dist/``: two ranks on the one card joined by gloo
    (NCCL refuses two ranks on one GPU) take 1 warm and 2 timed
    data-parallel steps of the full-width LIST at a global batch of
@@ -85,12 +103,15 @@ Run from the repository root.  Phases (any failure exits non-zero):
    whose rows must be those of phase 5's default-head 1-process sweep
    within the sweep tolerance (rtol 7e-2, atol 2e-2).  A 1-rank NCCL
    group's small step must be bit-identical to the step with no group
-   (deterministic algorithms on, in a process of its own).
+   (deterministic algorithms on, in a process of its own); in the same
+   process ``--checkify`` must leave that step bit-identical, and a NaN
+   written into its image must raise FloatingPointError and leave the
+   parameters, BatchNorm statistics, Adam moments and step as they were.
    ``evaluation/evaluate_torch.py`` and ``evaluate_gather_torch.py`` score
    and merge the sharded sweep's meshes, and ``predict_grid`` with the
    decode split over two row ranges on the card must give the unsplit
    grid with 2 K1 launches (each timed).
-10. Prints one JSON line of kernel numbers (K2 once per path: per request
+11. Prints one JSON line of kernel numbers (K2 once per path: per request
     at batch 1, and per train step at batch 8; K4 per mesh of the sweep;
     ``driver_launches`` and ``pix3d_launches``: the warm-started LIST
     epoch's counts on the synthetic and the Pix3D data), then the device
@@ -602,8 +623,164 @@ def card_gradient_check(cfg, model, batch, Executor, device='cuda',
     return rec
 
 
+REMAT_LEVELS = (0, 1, 2)  # --remat_save_samples
+
+
+def _level_steps(cfg, base, batches, level):
+    """``len(batches)`` LISTExecutor.train steps (the first warm) of a copy
+    of ``base`` under ``--remat_save_samples level``: each step's losses,
+    step_s and peak memory, and the final run (_step_run)."""
+    from list_tpu_torch.train import LISTExecutor
+    model = copy.deepcopy(base)
+    model.remat_save_samples = level
+    ex = LISTExecutor(cfg, model)
+    ex.init_optimizer()
+    steps = []
+    for b in batches:
+        torch.cuda.reset_peak_memory_stats()
+        _, losses = ex.train(b)
+        steps.append(dict(step_s=ex.timings['step_s'],
+                          peak_device_gb=torch.cuda.max_memory_allocated()
+                          / 1e9,
+                          losses={k: float(v) for k, v in losses.items()}))
+    run = _step_run(ex, losses)
+    del ex, model
+    torch.cuda.empty_cache()
+    return steps, run
+
+
+def remat_levels_phase(args, cfg, batches, card_line):
+    """The training cell (batch 8 x 32,768 queries at 128^3, --remat 1,
+    --train_query_chunks 4) at --remat_save_samples 0, 1 and 2 from the
+    same seeded weights and batches: 1 warm and 2 timed steps per level
+    as the port runs by default (step_s, peak memory), then 2 steps per
+    level with deterministic algorithms (3x slower, so one step fewer),
+    where both steps' losses, the parameters after them and the BatchNorm
+    statistics must agree with level 0's within
+    tests/test_torch_train.py's remat tolerances (losses rtol 1e-9;
+    parameters 1e-10 + 1e-6 * max|p|; statistics 1e-12)."""
+    from list_tpu_torch.models import LIST
+    torch.manual_seed(args.seed)
+    base = LIST.from_config(cfg)
+    levels = {}
+    for level in REMAT_LEVELS:
+        steps, _ = _level_steps(cfg, base, batches, level)
+        levels[level] = dict(steps=steps)
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {}
+        for level in REMAT_LEVELS:
+            levels[level]['deterministic_steps'], runs[level] = \
+                _level_steps(cfg, base, batches[:2], level)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+    ref, bad = levels[0]['deterministic_steps'], []
+    for level in REMAT_LEVELS[1:]:
+        got = levels[level]['deterministic_steps']
+        for i, (a, b) in enumerate(zip(got, ref)):
+            for k, v in b['losses'].items():
+                if abs(a['losses'][k] - v) > 1e-9 * abs(v):
+                    bad.append((level, i, k, a['losses'][k], v))
+        same = True
+        for part, tol in (('params', 1e-6), ('stats', 0.0)):
+            for k, r in runs[0][part].items():
+                err = float((runs[level][part][k] - r).abs().max())
+                same = same and err == 0
+                lim = (1e-10 + tol * float(r.abs().max()) if tol
+                       else 1e-12)
+                if err > lim:
+                    bad.append((level, part, k, err, lim))
+        levels[level]['bit_identical_to_level_0'] = same and not any(
+            b[0] == level for b in bad)
+    for level, rec in levels.items():
+        print('remat level', json.dumps(dict(
+            card=card_line, remat_save_samples=level,
+            step_s=[st['step_s'] for st in rec['steps'][1:]],
+            peak_device_gb=[st['peak_device_gb'] for st in rec['steps']],
+            deterministic_step_s=[st['step_s'] for st in
+                                  rec['deterministic_steps'][1:]],
+            bit_identical_to_level_0=rec.get('bit_identical_to_level_0'),
+            losses=rec['deterministic_steps'][-1]['losses'])), flush=True)
+    if bad:
+        fail(f'--remat_save_samples changes the step: {bad[:10]}')
+    return levels
+
+
+OVERFIT_STEPS = 400  # tools/torch_overfit_chip.py's default
+
+
+def overfit_phase(args, stencil3d, fused_fc0, card_line):
+    """tools/torch_overfit_chip.py at its 400 steps on the card (module
+    docstring, phase 7): its gate, and every step's and the mesh's launch
+    counts (read around each LISTExecutor.train and predict_grid call)."""
+    import importlib.util
+    from list_tpu_torch.train import LISTExecutor
+    spec = importlib.util.spec_from_file_location(
+        'torch_overfit_chip', os.path.join(HERE, 'tools',
+                                           'torch_overfit_chip.py'))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    per = {'train': [], 'predict_grid': []}
+    real = {k: getattr(LISTExecutor, k) for k in per}
+
+    def counted(kind):
+        def call(self, *a, **kw):
+            before = read_counts(stencil3d, fused_fc0)
+            out = real[kind](self, *a, **kw)
+            after = read_counts(stencil3d, fused_fc0)
+            per[kind].append({k: after[k] - before[k] for k in after})
+            return out
+        return call
+
+    for k in real:
+        setattr(LISTExecutor, k, counted(k))
+    reset_counts(stencil3d, fused_fc0)
+    try:
+        rec = tool.main('cuda', OVERFIT_STEPS, args.seed,
+                        log=lambda line: print(f'overfit| {line}',
+                                               flush=True))
+    finally:
+        for k, f in real.items():
+            setattr(LISTExecutor, k, f)
+    total = read_counts(stencil3d, fused_fc0)
+    line = dict(card=card_line, steps=rec['steps'],
+                first_losses=rec['first_losses'],
+                last_losses=rec['last_losses'],
+                step_s_median=rec['step_s_median'], train_s=rec['train_s'],
+                peak_device_gb=rec['peak_device_gb'],
+                vertices=rec['vertices'], iou=rec['iou'],
+                gates=rec['gates'], launches=total,
+                launches_per_step=per['train'][0] if per['train'] else None,
+                launches_per_mesh=per['predict_grid'])
+    print('overfit', json.dumps(line), flush=True)
+    if not rec['passed']:
+        fail(f'the overfit gate failed: {rec["gates"]}')
+    if len(per['train']) != OVERFIT_STEPS or any(
+            c != STEP_LAUNCHES for c in per['train']):
+        fail(f'overfit: {len(per["train"])} steps, launches '
+             f'{[c for c in per["train"] if c != STEP_LAUNCHES][:3]} '
+             f'against {STEP_LAUNCHES} a step')
+    if per['predict_grid'] != [TEST_LAUNCHES]:
+        fail(f'overfit: the mesh launched {per["predict_grid"]}, expected '
+             f'{TEST_LAUNCHES}')
+    want = {k: OVERFIT_STEPS * STEP_LAUNCHES[k] + TEST_LAUNCHES[k]
+            for k in total}
+    if total != want:
+        fail(f'overfit: launches {total}, expected {want}')
+    return dict(rec, launches=total)
+
+
 SWEEP_SHAPES = 8  # the synthetic test split
 SWEEP_DROPPED = (1, 2, 3, 5)  # cached meshes deleted before the 2nd sweep
+# each sweep's device phase (s) and fresh meshes/s when predict_grid still
+# synchronized and the fetch copied on the default stream (PERF.md §5; NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's
+SWEEP_SYNCHRONIZED_FETCH = {
+    '--use_pallas 1': dict(device_phase_s=13.47, fresh_meshes_per_s=0.594),
+    '--use_pallas -1 --infer_batch 2': dict(device_phase_s=21.34,
+                                            fresh_meshes_per_s=0.187)}
 
 
 def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
@@ -623,7 +800,11 @@ def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
         def call(self, imgs, *a, **kw):
             starts.append(time.perf_counter())
             out = real[k](self, imgs, *a, **kw)
-            calls.append(dict(images=len(imgs), **self.timings))
+            first = out[0] if isinstance(out, list) else out
+            # the call's CUDA events; their times are read after the sweep
+            calls.append((len(imgs), getattr(first, 'spans', None)))
+            if calls[-1][1] is None:
+                fail(f'sweep {label}: a device call returned no events')
             return out
         return call
 
@@ -645,11 +826,16 @@ def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
     with open(csv_path) as f:
         header, *rows = list(csv.reader(f))
     vals = np.asarray([r[2:] for r in rows], np.float64)
+    calls = [dict(images=n, **spans.resolve()) for n, spans in calls]
     fresh = sum(c['images'] for c in calls)
     device_phase = t1 - starts[0] if starts else float('nan')
+    later = [c['decode_s'] for c in calls[1:]]
     rec = dict(sweep=label, wall_s=wall, device_phase_s=device_phase,
                fresh_meshes=fresh,
                fresh_meshes_per_s=fresh / device_phase,
+               synchronized_fetch=SWEEP_SYNCHRONIZED_FETCH.get(label),
+               first_decode_s=calls[0]['decode_s'] if calls else None,
+               later_decode_s=[min(later), max(later)] if later else None,
                device_calls=calls, launches=counts,
                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                csv=os.path.relpath(csv_path, HERE), columns=header[2:],
@@ -1375,9 +1561,12 @@ def dist_rank(args, stencil3d, fused_fc0):
 
 def nccl_rank(args):
     """The small step twice with no process group and once in a 1-rank
-    NCCL group (``chip_smoke.py --nccl_rank``), deterministic algorithms
-    on; writes whether each pair is bit-identical to
-    ``<dist_dir>/nccl.json``."""
+    NCCL group (``chip_smoke.py --nccl_rank``), then once under
+    ``--checkify`` and once more there with a NaN in the image,
+    deterministic algorithms on; writes to ``<dist_dir>/nccl.json``
+    whether each pair of clean steps is bit-identical, the NaN step's
+    FloatingPointError and whether the executor's parameters, BatchNorm
+    statistics, Adam moments and step survived it unchanged."""
     from list_tpu_torch.parallel import multihost
     from list_tpu_torch.train import LISTExecutor
     torch.backends.cudnn.benchmark = False
@@ -1403,10 +1592,28 @@ def nccl_rank(args):
                     return False
         return True
 
+    # --checkify: the clean step as without the flag; then a NaN in the
+    # image raises and leaves the executor as it was
+    ccfg = copy.copy(cfg)
+    ccfg.checkify = True
+    ex = LISTExecutor(ccfg, copy.deepcopy(model))
+    checked = _step_run(ex, ex.train(batch)[1])
+    kept = dict(_digests(ex), step=ex.step)
+    bad = dict(batch, rgb_image=batch['rgb_image'].copy())
+    bad['rgb_image'][1, 100, 120, 0] = np.nan
+    try:
+        ex.train(bad)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
     with open(os.path.join(args.dist_dir, 'nccl.json'), 'w') as f:
         json.dump(dict(backend=backend, repeat_identical=same(runs[0],
                                                               runs[1]),
-                       nccl_identical=same(runs[0], runs[2])), f)
+                       nccl_identical=same(runs[0], runs[2]),
+                       checkify_identical=same(runs[0], checked),
+                       checkify_raised=raised,
+                       checkify_state_kept=dict(_digests(ex), step=ex.step)
+                       == kept), f)
 
 
 def _spawn(args, flags, log):
@@ -1637,6 +1844,12 @@ def dist_phase(args, stencil3d, fused_fc0, card_line, sweep):
     if not (nccl['backend'] == 'nccl' and nccl['nccl_identical']):
         fail('the 1-rank NCCL step is not bit-identical to the step with no '
              'process group')
+    if not (nccl['checkify_identical'] and nccl['checkify_raised']
+            and nccl['checkify_state_kept']):
+        fail('--checkify on the card: the clean step differs from the '
+             'unchecked one, or the NaN step did not raise '
+             'FloatingPointError, or it changed the parameters, BatchNorm '
+             'statistics, Adam moments or step')
     model = LIST.from_config(cfg)
     load_checkpoint(sweep['checkpoint'], model)
     split = split_decode_check(default_config(vox_res=128, sdf_scale=10.0),
@@ -1843,7 +2056,16 @@ def main():
     tex = LISTExecutor(tcfg, LIST.from_config(tcfg))
     tex.init_optimizer()
     steps, train_launches = train_path(tex, batches, stencil3d, fused_fc0)
-    del tex, batches
+    del tex
+    torch.cuda.empty_cache()
+
+    # ---- --remat_save_samples 0 / 1 / 2 at the training cell --------------
+    remat_levels = remat_levels_phase(args, tcfg, batches[:3], card_line)
+    del batches
+    torch.cuda.empty_cache()
+
+    # ---- the overfit gate: tools/torch_overfit_chip.py, 400 steps ---------
+    overfit = overfit_phase(args, stencil3d, fused_fc0, card_line)
     torch.cuda.empty_cache()
 
     # ---- small train step against the CPU plain path ----------------------
@@ -1927,6 +2149,7 @@ def main():
                   small_input_err=ref_err, small_input_k4_err=k4_err,
                   sweep=sweep, train_steps=steps,
                   train_launches=train_launches, gradient_check=gcheck,
+                  remat_levels=remat_levels, overfit=overfit,
                   stage1=stage1, driver=driver, pix3d=pix3d, dist=dist,
                   total_s=time.perf_counter() - t_start)
     if args.report:

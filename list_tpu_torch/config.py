@@ -2,8 +2,11 @@
 
 Same flag names and defaults as ``list_tpu/config.py`` (itself mirroring
 the reference's ``arguments.py``), so an experiment command runs under
-either package.  Flags that only change the TPU program (layout, remat,
-fusion knobs) are accepted and documented as inert for the port.
+either package.  Flags ``_INERT`` here are inert in the JAX package too.
+The JAX package's layout-only training flags (``--fuse_sample_gathers``,
+``--collapse_samples``, ``--collapse_select``, ``--fc0_dmajor``,
+``--sort_queries``, ``--percep_collapse``) compute the same values as
+without them; the port accepts them and computes the plain path.
 """
 
 from __future__ import annotations
@@ -138,7 +141,14 @@ def _build_parser() -> ArgumentParser:
     a('--collapse_samples', type=str, default='auto')
     a('--collapse_select', type=int, default=0)
     a('--fc0_dmajor', type=int, default=0)
-    a('--remat_save_samples', type=int, default=0)
+    a('--remat_save_samples', type=int, default=0,
+      help='Under decode remat with --train_query_chunks above 1, keep the '
+           'named sampled feature stacks for the backward instead of '
+           'recomputing them: the backward then skips the forward\'s '
+           're-gathers, at the cost of the stacks\' memory (the voxel '
+           'stack is 7 x 369 values a query at the default spec, the '
+           'perceptual one 1,024). 0 = full remat; 1 = keep the voxel '
+           'samples; 2 = keep the voxel and the perceptual samples.')
     a('--steps_per_dispatch', type=int, default=1)
     a('--sort_queries', type=int, default=0)
     a('--train_query_chunks', type=int, default=4)
@@ -161,7 +171,14 @@ def _build_parser() -> ArgumentParser:
     a('--process_id', type=int, default=-1,
       help='This process\'s rank; it runs on card rank %% device_count '
            '(--multihost 1).')
-    a('--checkify', action='store_true', help=_INERT)
+    a('--checkify', action='store_true',
+      help='NaN/inf guards in the single train step (debugging): forward '
+           'and backward under torch.autograd.detect_anomaly, and every '
+           'loss and gradient checked finite before the optimizer step; a '
+           'step that fails raises FloatingPointError and leaves the '
+           'parameters, Adam state, BatchNorm statistics and step count '
+           'as they were.  --steps_per_dispatch falls back to single '
+           'steps.')
     return p
 
 

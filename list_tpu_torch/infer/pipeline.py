@@ -8,10 +8,12 @@ into a CSV with an appended mean row.  ``--chunk_s/--chunk_l`` select a
 window of the test list.
 
 The device decode of shape i+1 overlaps the host's marching cubes and
-metrics of shape i: a fetch pool runs up to 4 device->host grid transfers
-(``fetch_grid_f32``, a band decode under ``--fetch_mode band``) while a
-pool of host workers meshes and evaluates (the native routines release the
-GIL), with at most 4 meshes in flight.  ``--infer_batch B`` encodes B
+metrics of shape i: ``predict_grid(..., device_out=True)`` returns without
+waiting for the card, a fetch pool runs up to 4 device->host grid
+transfers (``fetch_grid_f32``, a band decode under ``--fetch_mode band``;
+on the card each on a side stream that waits on its result's CUDA event
+only) while a pool of host workers meshes and evaluates (the native
+routines release the GIL), with at most 4 meshes in flight.  ``--infer_batch B`` encodes B
 images per pass.  Executors without a ``predict_grid`` (CoarseNet) take
 the serial per-shape path.  Under ``--multihost 1`` each process sweeps
 its strided share of the window (``parallel.multihost.shard_datalist``) on
@@ -74,8 +76,9 @@ def _device_infer(executor, dataset, cat_id, shape_id, output_dir, cam_id):
     batch = dataset.get_testdata(cat_id, shape_id, cam_id)
     if os.path.exists(fname + '_pred.obj'):
         return batch, fname, None
-    # device_out: the fetch pool copies the grid to the host while the
-    # device decodes the next shape
+    # device_out: the call returns once the card has the work queued; the
+    # fetch pool copies the grid to the host while the device decodes the
+    # next shape
     pred_values = executor.predict_grid(batch['rgb_image'],
                                         batch.get('transmat'),
                                         device_out=True)

@@ -16,9 +16,14 @@ before the cast), under
 ``checkpoint`` with ``remat``, and ``forward`` splits the query axis into
 ``train_query_chunks`` chunks (a zero-padded ragged tail, sliced off), each
 checkpointed when decode remat is on (``remat_decode`` None follows
-``remat``).  The JAX package's layout-only training options (fold-packed,
-corner-collapsed or tap-minor sampling, fused gathers, saved samples,
-sorted queries) compute the same values; the port computes the plain path.
+``remat``).  With ``remat_save_samples`` 1 a checkpointed chunk keeps its
+sampled voxel stack for the backward and recomputes only the perceptual
+sampling and the head; 2 also keeps the perceptual samples (the JAX
+package's ``save_only_these_names('decode_vox'[, 'decode_percep'])``
+policy): the same step, traded for memory.  The JAX package's layout-only
+training options (fold-packed, corner-collapsed or tap-minor sampling,
+fused gathers, sorted queries) compute the same values; the port computes
+the plain path.
 """
 
 from __future__ import annotations
@@ -34,7 +39,8 @@ from list_tpu_torch.models.percep import PerceptualPooling
 from list_tpu_torch.models.pointmlp import PointMLP
 from list_tpu_torch.models.resnet import ResEncoder
 from list_tpu_torch.models.treegcn import TreeGraphDecoder
-from list_tpu_torch.models.voxel import VoxelDecoder2, VoxelEncoder2
+from list_tpu_torch.models.voxel import (VoxelDecoder2, VoxelEncoder2,
+                                         sample_multiscale)
 from list_tpu_torch.ops.grid import reorder_and_scale_query, voxelize
 from list_tpu_torch.ops.sampling import resize_bilinear_align_corners
 
@@ -100,10 +106,12 @@ class LIST(nn.Module):
                  h_dim: int = 256, support: int = 10, remat: bool = False,
                  remat_decode: Optional[bool] = None,
                  train_query_chunks: int = 4,
-                 vox_packed_dtype: Optional[str] = 'bfloat16'):
+                 vox_packed_dtype: Optional[str] = 'bfloat16',
+                 remat_save_samples: int = 0):
         super().__init__()
         self.vox_res, self.bb_min, self.bb_max = vox_res, bb_min, bb_max
         self.remat, self.remat_decode = remat, remat_decode
+        self.remat_save_samples = remat_save_samples
         self.train_query_chunks = train_query_chunks
         self.im_enc_layers = tuple(im_enc_layers)
         self.h_dim = h_dim
@@ -129,6 +137,8 @@ class LIST(nn.Module):
                    im_enc_layers=tuple(config.im_enc_layers),
                    remat=bool(getattr(config, 'remat', 0)),
                    remat_decode=None if rd < 0 else bool(rd),
+                   remat_save_samples=int(
+                       getattr(config, 'remat_save_samples', 0)),
                    train_query_chunks=int(
                        getattr(config, 'train_query_chunks', 4)))
 
@@ -163,6 +173,26 @@ class LIST(nn.Module):
         percep = self.percep_pooling(enc['feat_l2'], q, enc['trans_mat'])
         return self.sdf_decoder(q, enc['vox_feat'], percep)
 
+    def _decode_saving(self, query: torch.Tensor,
+                       enc: Dict[str, Any]) -> torch.Tensor:
+        """``decode_sdf`` of one checkpointed chunk under
+        ``remat_save_samples``: the voxel sampling runs outside the
+        checkpoint, so its stack is kept for the backward (with the
+        sampler's indices and weights; its gathers are not redone), and the
+        checkpoint recomputes the rest.  At level 2 the perceptual samples
+        come from a checkpoint of their own, so they are kept too while
+        their gathers are redone for their own backward."""
+        q = reorder_and_scale_query(query)
+        dec = self.sdf_decoder
+        vox = sample_multiscale(enc['vox_feat'], q, dec.delta)
+
+        def percep(q):
+            return self.percep_pooling(enc['feat_l2'], q, enc['trans_mat'])
+
+        if self.remat_save_samples >= 2:
+            return checkpoint(dec.head, q, vox, checkpoint(percep, q))
+        return checkpoint(lambda q, vox: dec.head(q, vox, percep(q)), q, vox)
+
     def forward(self, img: torch.Tensor, query: torch.Tensor,
                 trans_mat: Optional[torch.Tensor] = None):
         """(occ_pred (B, R, R, R), sdf (B, N)); query (B, N, 3) world
@@ -184,6 +214,10 @@ class LIST(nn.Module):
         sdf = []
         for c in range(k):
             qc = query[:, c * nc:(c + 1) * nc]
-            sdf.append(checkpoint(self.decode_sdf, qc, enc) if remat
-                       else self.decode_sdf(qc, enc))
+            if not remat:
+                sdf.append(self.decode_sdf(qc, enc))
+            elif self.remat_save_samples:
+                sdf.append(self._decode_saving(qc, enc))
+            else:
+                sdf.append(checkpoint(self.decode_sdf, qc, enc))
         return enc['occ_pred'], torch.cat(sdf, 1)[:, :N]

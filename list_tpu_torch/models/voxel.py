@@ -20,7 +20,9 @@ back: the value the JAX package's fold-packed training sampler reads
 ported; the plain ``grid_sample_3d`` samples the rounded features.
 
 VoxelDecoder2: 7 displaced trilinear samples (border, align corners) of
-every scale + perceptual features + xyz -> 3610 -> 2h -> h -> h -> 1.
+every scale + perceptual features + xyz -> 3610 -> 2h -> h -> h -> 1;
+``head`` is the part after the sampling (``--remat_save_samples``
+checkpoints it apart from the sampled stack).
 """
 
 from __future__ import annotations
@@ -137,7 +139,14 @@ class VoxelDecoder2(nn.Module):
 
     def forward(self, p: torch.Tensor, feat: Sequence[torch.Tensor],
                 percep_feat: torch.Tensor) -> torch.Tensor:
-        vox = sample_multiscale(feat, p, self.delta)
+        return self.head(p, sample_multiscale(feat, p, self.delta),
+                         percep_feat)
+
+    def head(self, p: torch.Tensor, vox: torch.Tensor,
+             percep_feat: torch.Tensor) -> torch.Tensor:
+        """fc_0..fc_out over the sampled voxel stack ``vox``
+        (``sample_multiscale``'s output, the JAX package's ``decode_vox``),
+        the perceptual features (``decode_percep``) and xyz -> (B, N)."""
         x = torch.cat([vox, percep_feat, p], dim=-1)
         for fc in (self.fc_0, self.fc_1, self.fc_2):
             x = F.relu(fc(x))

@@ -17,11 +17,18 @@ bit-identical to the JAX package's on the same grid.  ``band_cap``,
 ``_mixed_cube_mask``, ``band_decode``, ``BandGrid`` and ``fetch_grid_f32``
 are the JAX package's, in numpy on the host (``_mixed_cube_mask`` takes a
 numpy or a torch bool grid).
+
+On the card a fetch does not wait behind later work: a device result of
+``predict_grid(..., device_out=True)`` carries the CUDA event recorded
+after its last kernel (``ready``) and its call's ``DeviceSpans``, and each
+copy runs on a side stream that waits on that event alone, into pinned
+host memory, synchronizing only that stream.  So a fetch worker copies
+shape i while the main stream already runs shape i + 1.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -148,9 +155,75 @@ def band_decode(buf: np.ndarray, resolution: int,
     return rec
 
 
-def band_to_numpy(band: torch.Tensor) -> np.ndarray:
+class DeviceSpans:
+    """CUDA events of one predict call on the card: its start, the end of
+    its encode, and the end of each image's decode (``mark``).
+    ``resolve`` gives ``encode_s`` (start to the encode's end) and
+    ``decode_s`` (the encode's end to the last decode's end: the sum of
+    the call's decodes) in seconds, once the last event has completed,
+    and writes them into ``timings`` (the executor's)."""
+
+    def __init__(self, device: torch.device, timings: Dict[str, float]):
+        self.device = device
+        self.timings = timings
+        self.events: List[torch.cuda.Event] = []
+        self._times: Optional[Dict[str, float]] = None
+
+    def mark(self) -> torch.cuda.Event:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.device))
+        self.events.append(ev)
+        return ev
+
+    def resolve(self, wait: bool = True) -> Optional[Dict[str, float]]:
+        """The call's times (None when ``wait`` is False and its last
+        decode is still running)."""
+        if self._times is None:
+            last = self.events[-1]
+            if not wait and not last.query():
+                return None
+            last.synchronize()
+            start, encoded = self.events[:2]
+            self._times = dict(encode_s=start.elapsed_time(encoded) / 1e3,
+                               decode_s=encoded.elapsed_time(last) / 1e3)
+            self.timings.update(self._times)
+        return self._times
+
+
+def mark_ready(result, spans: DeviceSpans):
+    """Record the event after ``result``'s last kernel (a wire grid or a
+    ``BandGrid``) and attach it and the call's ``spans`` to it."""
+    result.ready = spans.mark()
+    result.spans = spans
+    return result
+
+
+@torch.inference_mode()
+def _to_host(t: torch.Tensor, ready=None) -> torch.Tensor:
+    """A tensor's host copy (a CPU tensor as it is).  On the card the copy
+    runs on a side stream that waits on ``ready`` (the event after which
+    ``t`` is complete; without one, on the work queued so far on ``t``'s
+    device), into pinned memory, and only that stream is synchronized;
+    ``t`` is recorded on the stream so that the caching allocator does not
+    hand its memory out before the copy has read it."""
+    if t.device.type != 'cuda':
+        return t
+    side = torch.cuda.Stream(device=t.device)
+    if ready is None:
+        side.wait_stream(torch.cuda.current_stream(t.device))
+    else:
+        side.wait_event(ready)
+    with torch.cuda.stream(side):
+        t.record_stream(side)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+    side.synchronize()
+    return host
+
+
+def band_to_numpy(band: torch.Tensor, ready=None) -> np.ndarray:
     """Device band buffer -> the host's uint32 words."""
-    return band.cpu().numpy().view(np.uint32)
+    return _to_host(band, ready).numpy().view(np.uint32)
 
 
 class BandGrid:
@@ -159,6 +232,8 @@ class BandGrid:
     fetched only when count > cap).  ``fetch_grid_f32`` turns a BandGrid
     or a plain device or host grid into the (R, R, R) float32 host grid."""
 
+    ready = None  # set by ``mark_ready`` on the card
+
     def __init__(self, band_buf, grid, resolution: int, wire_dtype: str):
         self.band = band_buf
         self.grid = grid
@@ -166,19 +241,31 @@ class BandGrid:
         self.wire_dtype = wire_dtype
 
     def to_numpy(self) -> np.ndarray:
-        rec = band_decode(band_to_numpy(self.band), self.resolution,
-                          self.wire_dtype)
+        rec = band_decode(band_to_numpy(self.band, self.ready),
+                          self.resolution, self.wire_dtype)
         if rec is None:  # band overflow: full fetch (correct, just slower)
-            return fetch_grid_f32(self.grid)
+            return _grid_f32(self.grid, self.ready)
         return rec
+
+
+def _grid_f32(grid: torch.Tensor, ready=None) -> np.ndarray:
+    """The wire grid in f32 on the host: copied in the wire dtype,
+    upcast there (exact)."""
+    return _to_host(grid, ready).float().numpy()
 
 
 def fetch_grid_f32(pred_values) -> np.ndarray:
     """Device -> host fetch + f32 upcast for any dense-predict result
     (BandGrid, tensor or array); the one place the sweep's fetch workers
-    call."""
+    call.  A result with events also resolves its call's times when that
+    call's last decode is done."""
     if isinstance(pred_values, BandGrid):
-        return pred_values.to_numpy()
-    if isinstance(pred_values, torch.Tensor):
-        return pred_values.float().cpu().numpy()
-    return np.asarray(pred_values).astype(np.float32)
+        out = pred_values.to_numpy()
+    elif isinstance(pred_values, torch.Tensor):
+        out = _grid_f32(pred_values, getattr(pred_values, 'ready', None))
+    else:
+        return np.asarray(pred_values).astype(np.float32)
+    spans = getattr(pred_values, 'spans', None)
+    if spans is not None:
+        spans.resolve(wait=False)
+    return out

@@ -23,10 +23,13 @@ def create_grid_points_from_bounds(minimum: float, maximum: float,
 
 def voxel_indices(points: torch.Tensor, bb_min: float, bb_max: float,
                   res: int) -> torch.Tensor:
-    """Nearest grid-point index per axis: (..., 3) int64 in [0, res-1]."""
+    """Nearest grid-point index per axis: (..., 3) int64 in [0, res-1].
+    A NaN coordinate takes index 0, as the JAX package's float-to-int cast
+    gives it on the CPU (torch's cast leaves it out of range, which a
+    scatter on the card would trip on)."""
     step = (bb_max - bb_min) / (res - 1)
     idx = torch.round((points - bb_min) / step)
-    return idx.clamp(0, res - 1).long()
+    return torch.nan_to_num(idx, nan=0.0).clamp(0, res - 1).long()
 
 
 @torch.no_grad()

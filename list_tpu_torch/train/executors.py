@@ -28,13 +28,17 @@ running statistics stay bit-identical on every rank.
   divide + the ``--fetch_dtype`` cast (+ the ``--fetch_mode band`` encode)
   on the device and returns the (R, R, R) f32 host grid, or with
   ``device_out`` the device result (a ``BandGrid`` in band mode) for a
-  fetch worker; ``predict_grid_batch`` encodes B images in one pass and
-  decodes each; ``test`` adds marching cubes and, with ``eval_pred``, the
-  mesh metrics.
+  fetch worker, without waiting for the device on the card (the result
+  carries the CUDA event its fetch waits on); ``predict_grid_batch``
+  encodes B images in one pass and decodes each; ``test`` adds marching
+  cubes and, with ``eval_pred``, the mesh metrics.
+- Under ``--checkify`` a single train step is checked for non-finite
+  losses and gradients (``_optimizer_step``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -45,7 +49,8 @@ import torch.distributed as dist
 
 from list_tpu_torch.device import resolve_device
 from list_tpu_torch.eval.metrics import eval_mesh, eval_pointcloud
-from list_tpu_torch.ops.band import BandGrid, band_encode, fetch_grid_f32
+from list_tpu_torch.ops.band import (BandGrid, DeviceSpans, band_encode,
+                                     fetch_grid_f32, mark_ready)
 from list_tpu_torch.ops.dense_grid import dense_grid_sdf
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
 from list_tpu_torch.ops.losses import chamfer_loss, occupancy_loss, sdf_loss
@@ -83,6 +88,7 @@ class BaseExecutor:
         self.timings: Dict[str, float] = {}
         self.optimizer: Optional[torch.optim.Adam] = None
         self.step = 0
+        self._checkify = bool(getattr(config, 'checkify', False))
         self.distributed = dist.is_initialized()
         if self.distributed:
             with torch.no_grad():
@@ -113,26 +119,71 @@ class BaseExecutor:
 
     def _optimizer_step(self, losses_fn: Callable[[], Dict], t0: float):
         """One step of ``losses_fn`` (the forward and its loss dict) in
-        train mode -> (None, detached losses); ``step_s`` from ``t0``."""
+        train mode -> (None, detached losses); ``step_s`` from ``t0``.
+
+        Under ``--checkify`` (single steps; ``train_multi`` is unchecked,
+        as in the JAX package) the forward and backward run under
+        ``torch.autograd.detect_anomaly`` and, after the gradient
+        all-reduce and the loss mean over the ranks (so every rank sees
+        the same values and raises together), every loss and gradient must
+        be finite before Adam applies them.  A failing step raises
+        ``FloatingPointError`` and restores the BatchNorm statistics the
+        forward updated in place; the parameters, the Adam state and
+        ``step`` were not touched."""
         if self.optimizer is None:
             self.init_optimizer()
+        buffers = ({k: v.clone() for k, v in self.model.named_buffers()}
+                   if self._checkify else None)
         self.model.train()
         try:
             self.optimizer.zero_grad(set_to_none=True)
-            losses = losses_fn()
-            total_loss(losses).backward()
+            with (torch.autograd.detect_anomaly(
+                    check_nan=not self.distributed) if self._checkify
+                  else contextlib.nullcontext()):
+                losses = losses_fn()
+                total_loss(losses).backward()
             if self.distributed:
                 self._all_reduce_grads()
+            losses = {k: v.detach() for k, v in losses.items()}
+            if self.distributed:
+                losses = self._mean_over_ranks(losses)
+            if self._checkify:
+                self._check_finite(losses)
             self.optimizer.step()
+        except FloatingPointError:
+            self._undo_step(buffers)
+            raise
+        except RuntimeError as e:
+            # one process: detect_anomaly raises from inside the backward
+            if buffers is None or 'returned nan values' not in str(e):
+                raise
+            self._undo_step(buffers)
+            raise FloatingPointError(f'--checkify: {e}') from e
         finally:
             self.model.eval()
         self.step += 1
-        losses = {k: v.detach() for k, v in losses.items()}
-        if self.distributed:
-            losses = self._mean_over_ranks(losses)
         self._sync()
         self.timings['step_s'] = time.perf_counter() - t0
         return None, losses
+
+    def _undo_step(self, buffers: Dict[str, torch.Tensor]) -> None:
+        """Put back the buffers (BatchNorm statistics) saved before a
+        failed step and drop its gradients."""
+        with torch.no_grad():
+            for k, v in self.model.named_buffers():
+                v.copy_(buffers[k])
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def _check_finite(self, losses: Dict[str, torch.Tensor]) -> None:
+        """Raise ``FloatingPointError`` naming the first non-finite loss,
+        else the first parameter with a non-finite gradient."""
+        named = list(losses.items()) + [
+            (f'the gradient of {k}', p.grad)
+            for k, p in self.model.named_parameters() if p.grad is not None]
+        ok = torch.stack([torch.isfinite(v).all() for _, v in named]).cpu()
+        if not bool(ok.all()):
+            name = named[int((~ok).nonzero()[0])][0]
+            raise FloatingPointError(f'--checkify: {name} is not finite')
 
     def _rank_batch(self, batch):
         """This rank's rows of a global host batch (all of it in one
@@ -155,8 +206,14 @@ class BaseExecutor:
         return {k: f.to(v.dtype) for (k, v), f in zip(losses.items(), flat)}
 
     def train_multi(self, batches):
-        """One step per batch, in order -> (None, {key: (K,) losses})."""
-        steps = [self.train(b)[1] for b in batches]
+        """One step per batch, in order -> (None, {key: (K,) losses});
+        unchecked under ``--checkify``, as the JAX package's multi-step
+        dispatch is."""
+        checkify, self._checkify = self._checkify, False
+        try:
+            steps = [self.train(b)[1] for b in batches]
+        finally:
+            self._checkify = checkify
         return None, {k: torch.stack([s[k] for s in steps])
                       for k in steps[0]}
 
@@ -326,7 +383,14 @@ class LISTExecutor(BaseExecutor):
         """Dense (R, R, R) SDF field for one image: the f32 host grid, or
         with ``device_out`` the device result for ``fetch_grid_f32`` (a
         ``BandGrid`` in band mode, else the wire-dtype grid).  Band applies
-        to the dense path only: the chunked fallback returns the grid."""
+        to the dense path only: the chunked fallback returns the grid.
+
+        ``timings`` gets ``encode_s`` and ``decode_s`` (the fetch
+        included) from the host clock around synchronized phases; with
+        ``device_out`` on the card the call returns without waiting for
+        the device, its result carries the CUDA events around the encode
+        and the decode (``ops.band.DeviceSpans``), and the two times reach
+        ``timings`` when the result is fetched."""
         fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
         self.model.eval()
         img = torch.as_tensor(np.asarray(rgb_image), dtype=torch.float32,
@@ -337,9 +401,13 @@ class LISTExecutor(BaseExecutor):
             fast = bool(getattr(self.config, 'fast_grid', 1)) \
                 and img.shape[0] == 1
         slab, use_pallas = self._dense_plan(len(self.decode_devices))
+        spans = self._spans(device_out)
         t0 = time.perf_counter()
         enc = self.model.encode(img, tm)
-        self._sync()
+        if spans is None:
+            self._sync()
+        else:
+            spans.mark()
         t1 = time.perf_counter()
         if fast and slab is not None:
             out = self._finish(self._decode(enc, slab, use_pallas),
@@ -347,12 +415,26 @@ class LISTExecutor(BaseExecutor):
         else:
             out = self._finish(self._chunked_decode(enc), fetch_dtype,
                                'grid')
+        if spans is not None:
+            return mark_ready(out, spans)
         if not device_out:
             out = fetch_grid_f32(out)
         self._sync()
         self.timings.update(encode_s=t1 - t0,
                             decode_s=time.perf_counter() - t1)
         return out
+
+    def _spans(self, device_out: bool) -> Optional[DeviceSpans]:
+        """Under ``device_out`` on the card: the call's CUDA events, its
+        start marked, and its stale times dropped from ``timings`` (the
+        fetch writes them); else None (synchronized host clock)."""
+        if not (device_out and self.device.type == 'cuda'):
+            return None
+        self.timings.pop('encode_s', None)
+        self.timings.pop('decode_s', None)
+        spans = DeviceSpans(self.device, self.timings)
+        spans.mark()
+        return spans
 
     @torch.inference_mode()
     def predict_grid_batch(self, rgb_images: np.ndarray,
@@ -364,7 +446,8 @@ class LISTExecutor(BaseExecutor):
         then one decode per image: a list of B device results with
         ``device_out`` (each fetched on its own), else a (B, R, R, R) f32
         host array.  ``timings`` holds the batch's ``encode_s`` and the
-        summed ``decode_s``."""
+        summed ``decode_s`` (with ``device_out`` on the card from one
+        ``DeviceSpans`` that the B results share, as in ``predict_grid``)."""
         fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
         slab, use_pallas = self._dense_plan(len(self.decode_devices))
         if not (bool(getattr(self.config, 'fast_grid', 1))
@@ -381,18 +464,26 @@ class LISTExecutor(BaseExecutor):
             tm = (None if trans_mats is None else torch.as_tensor(
                 np.asarray(trans_mats), dtype=torch.float32,
                 device=self.device))
+            spans = self._spans(device_out)
             t0 = time.perf_counter()
             enc = self.model.encode(img, tm)
-            self._sync()
+            if spans is None:
+                self._sync()
+            else:
+                spans.mark()
             t1 = time.perf_counter()
-            grids = [self._finish(self._decode(
-                {'vox_feat': [f[i:i + 1] for f in enc['vox_feat']],
-                 'feat_l2': [f[i:i + 1] for f in enc['feat_l2']],
-                 'trans_mat': enc['trans_mat'][i:i + 1]}, slab, use_pallas),
-                fetch_dtype, fetch_mode) for i in range(img.shape[0])]
-            self._sync()
-            self.timings.update(encode_s=t1 - t0,
-                                decode_s=time.perf_counter() - t1)
+            grids = []
+            for i in range(img.shape[0]):
+                g = self._finish(self._decode(
+                    {'vox_feat': [f[i:i + 1] for f in enc['vox_feat']],
+                     'feat_l2': [f[i:i + 1] for f in enc['feat_l2']],
+                     'trans_mat': enc['trans_mat'][i:i + 1]}, slab,
+                    use_pallas), fetch_dtype, fetch_mode)
+                grids.append(g if spans is None else mark_ready(g, spans))
+            if spans is None:
+                self._sync()
+                self.timings.update(encode_s=t1 - t0,
+                                    decode_s=time.perf_counter() - t1)
         if device_out:
             return grids
         return np.stack([fetch_grid_f32(g) for g in grids])

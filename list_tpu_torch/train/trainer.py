@@ -81,9 +81,10 @@ def _step_losses(executor, config, data_iter):
     """Yield per-step host loss dicts, honoring --steps_per_dispatch: K
     batches at a time through ``executor.train_multi`` (K steps, the K
     losses back together); a ragged tail (< K batches left) takes single
-    steps, as the JAX package does."""
+    steps, as the JAX package does, and so does every step under
+    ``--checkify`` (``train_multi`` is unchecked)."""
     k = int(getattr(config, 'steps_per_dispatch', 1) or 1)
-    if k <= 1:
+    if k <= 1 or getattr(config, 'checkify', False):
         for batch in data_iter:
             _, batch_loss = executor.train(batch=batch, calc_loss=True)
             yield {kk: float(v) for kk, v in batch_loss.items()}

@@ -1,10 +1,13 @@
-"""CUDA kernels of the port against their plain PyTorch versions, and the
-farthest-point sampling on the card against the CPU.  They skip where
+"""CUDA kernels of the port against their plain PyTorch versions, the
+farthest-point sampling on the card against the CPU, and the sweep's
+overlapped device_out fetch.  They skip where
 torch has no CUDA device.  This file imports no JAX so it runs on a
 machine with only PyTorch:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -271,3 +274,102 @@ def test_fps_on_the_card_is_the_cpus(cuda, n, k):
     assert got.device.type == 'cuda'
     torch.testing.assert_close(got.cpu(), farthest_point_sampling(pts, k),
                                rtol=0, atol=0)
+
+
+# ---- the sweep's overlapped fetch ---------------------------------------------
+
+@pytest.fixture(scope='module')
+def card_executor():
+    """The full-width default LIST at vox_res 128 on the card with seeded
+    weights, three seeded 224x224 images, and fc_out bias shifts that
+    centre the first image's grid on its median (a surface too large for
+    the band: an overflow) and on its 3% quantile (a band that fits)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: torch.cuda.is_available() is False')
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import LISTExecutor
+    cfg = default_config(vox_res=128, sdf_scale=10.0)
+    torch.manual_seed(0)
+    ex = LISTExecutor(cfg, LIST.from_config(cfg))
+    rng = np.random.RandomState(0)
+    imgs = [rng.rand(1, 224, 224, 3).astype(np.float32) for _ in range(3)]
+    grid = ex.predict_grid(imgs[0], fetch_mode='grid')
+    bias = ex.model.sdf_decoder.fc_out.bias
+    base = bias.detach().clone()
+    shifts = {q: float(np.quantile(grid, q)) * cfg.sdf_scale
+              for q in (0.5, 0.03)}
+    yield ex, imgs, base, shifts
+    del ex
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize('mode', ['band overflow', 'band', 'grid'])
+def test_device_out_fetch_overlaps_the_next_shape(cuda, card_executor, mode):
+    """The sweep's order: shape i's device_out result is fetched on a
+    worker (side stream, waiting on its event) while shape i+1 is already
+    queued on the main stream; every fetched grid is bit-identical to the
+    synchronized fetch of the same shape (band mode with a band that
+    overflows into the full-grid fetch, band mode decoded from the band,
+    grid mode; bf16 wire).  The bias shifts are the first image's, so
+    each band case asserts that at least one shape took its path."""
+    from concurrent.futures import ThreadPoolExecutor
+    from list_tpu_torch.ops import band
+    ex, imgs, base, shifts = card_executor
+    fetch_mode = 'grid' if mode == 'grid' else 'band'
+    with torch.no_grad():
+        ex.model.sdf_decoder.fc_out.bias.copy_(
+            base - shifts[0.5 if mode == 'band overflow' else 0.03])
+    want = [ex.predict_grid(img, fetch_mode=fetch_mode) for img in imgs]
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        outs, futs = [], []
+        for img in imgs:
+            outs.append(ex.predict_grid(img, fetch_mode=fetch_mode,
+                                        device_out=True))
+            if len(outs) > 1:  # shape i fetched once shape i+1 is queued
+                futs.append(pool.submit(band.fetch_grid_f32, outs[-2]))
+        futs.append(pool.submit(band.fetch_grid_f32, outs[-1]))
+        got = [f.result() for f in futs]
+    if fetch_mode == 'band':  # the path under test was taken
+        counts = [int(band.band_to_numpy(o.band)[-1]) for o in outs]
+        cap = band.band_cap(128 ** 3)
+        assert any((c > cap) == (mode == 'band overflow')
+                   for c in counts), (counts, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32 and np.array_equal(g, w)
+
+
+def test_device_out_times_match_the_synchronized_phases(cuda, card_executor):
+    """encode_s and decode_s of a device_out call (CUDA events, resolved
+    by its fetch into ``timings``) agree within 10% with the same phases
+    timed on the host clock around synchronized calls: medians of 11
+    rounds of each, in turns, after 2 rounds of warm-up (the batch-1
+    encode is bound by the host's launches, whose time varies by 10-20%
+    from one call to the next)."""
+    from list_tpu_torch.ops import band
+    ex, imgs, base, shifts = card_executor
+    with torch.no_grad():
+        ex.model.sdf_decoder.fc_out.bias.copy_(base - shifts[0.03])
+    img = torch.as_tensor(imgs[1], device=cuda)
+    slab, head = ex._dense_plan()
+    synced, events = [], []
+    for _ in range(13):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            enc = ex.model.encode(img)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ex._finish(ex._decode(enc, slab, head), 'bfloat16', 'band')
+            torch.cuda.synchronize()
+            synced.append((t1 - t0, time.perf_counter() - t1))
+        out = ex.predict_grid(imgs[1], device_out=True)
+        assert 'decode_s' not in ex.timings
+        band.fetch_grid_f32(out)
+        events.append((ex.timings['encode_s'], ex.timings['decode_s']))
+        assert out.spans.resolve() == dict(encode_s=events[-1][0],
+                                           decode_s=events[-1][1])
+    for i, name in enumerate(('encode_s', 'decode_s')):
+        s = float(np.median([t[i] for t in synced[2:]]))
+        e = float(np.median([t[i] for t in events[2:]]))
+        assert abs(e - s) <= 0.1 * s, (name, e, s)

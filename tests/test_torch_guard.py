@@ -16,9 +16,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_and_chip_smoke_import_no_jax():
     """Importing the port, its entry scripts infer_torch.py,
     train_torch.py, evaluation/evaluate_torch.py,
-    evaluation/evaluate_gather_torch.py, preprocessing/preprocess_torch.py
-    and preprocessing/farthest_pointcloud_torch.py, and everything
-    chip_smoke.py imports, loads no
+    evaluation/evaluate_gather_torch.py, preprocessing/preprocess_torch.py,
+    preprocessing/farthest_pointcloud_torch.py and
+    tools/torch_overfit_chip.py, and everything chip_smoke.py imports,
+    loads no
     jax/flax/optax module, no module of the JAX package (``list_tpu``
     or ``list_tpu.*`` -- ``list_tpu_torch`` itself must not trip the
     check) and no h5py (the port's HDF5 files go through
@@ -53,6 +54,8 @@ def test_port_and_chip_smoke_import_no_jax():
         'import evaluate_torch, evaluate_gather_torch\n'
         'sys.path.insert(0, "preprocessing")\n'
         'import preprocess_torch, farthest_pointcloud_torch\n'
+        'sys.path.insert(0, "tools")\n'
+        'import torch_overfit_chip\n'
         'src = open("chip_smoke.py").read()\n'
         'for node in ast.walk(ast.parse(src)):\n'
         '    if isinstance(node, ast.Import):\n'

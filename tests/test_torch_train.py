@@ -423,29 +423,40 @@ def port_runs(setup):
     (upstream of the spatial transformer's batch-2 BatchNorm1d an f32
     gradient is too ill-conditioned to compare two summation orders)."""
     cfg, batch, _, variables = setup
+    runs = {}
 
-    def run(remat, chunks):
-        tm = LIST(**TINY, remat=bool(remat), train_query_chunks=chunks)
-        load_flax_variables(tm, variables)
-        tex = LISTExecutor(cfg, tm.double(), device='cpu')
-        _, losses = tex.train(batch)
-        return ({k: float(v) for k, v in losses.items()},
+    def run(remat, chunks, save=0):
+        if (remat, chunks, save) not in runs:
+            tm = LIST(**TINY, remat=bool(remat), train_query_chunks=chunks,
+                      remat_save_samples=save)
+            load_flax_variables(tm, variables)
+            tex = LISTExecutor(cfg, tm.double(), device='cpu')
+            _, losses = tex.train(batch)
+            runs[remat, chunks, save] = (
+                {k: float(v) for k, v in losses.items()},
                 {k: p.grad.clone() for k, p in tm.named_parameters()},
                 {k: v.clone() for k, v in tm.state_dict().items()
-                 if 'running' in k})
+                 if 'running' in k},
+                {k: p.detach().clone() for k, p in tm.named_parameters()})
+        return runs[remat, chunks, save]
 
     return run, run(0, 1)
 
 
-@pytest.mark.parametrize('remat,chunks', [(1, 1), (0, 2), (1, 2), (1, 3),
-                                          (0, 4), (1, 4)])
-def test_remat_and_query_chunks_same_step(port_runs, remat, chunks):
+@pytest.mark.parametrize('remat,chunks,save', [
+    pytest.param(r, c, 0, id=f'{r}-{c}')
+    for r, c in [(1, 1), (0, 2), (1, 2), (1, 3), (0, 4), (1, 4)]] + [
+    pytest.param(1, 2, s, id=f'1-2-remat_save_samples{s}') for s in (1, 2)])
+def test_remat_and_query_chunks_same_step(port_runs, remat, chunks, save):
     """remat on/off and train_query_chunks 1/2/3 (a ragged, zero-padded
     tail)/4 give the plain run's losses (rtol 1e-9), gradients (atol
     1e-10 + 1e-6 * max|g|: the chunks' gradients add in another order) and
-    batch stats updated exactly once (atol 1e-12), in f64."""
-    run, (l0, g0, s0) = port_runs
-    l1, g1, s1 = run(remat, chunks)
+    batch stats updated exactly once (atol 1e-12), in f64.  Under remat
+    with 2 chunks, --remat_save_samples 1 and 2 (the sampled voxel stack,
+    and the perceptual samples, kept for the backward) give the step of
+    level 0 bit for bit: losses, gradients, statistics and parameters."""
+    run, (l0, g0, s0, _) = port_runs
+    l1, g1, s1, p1 = run(remat, chunks, save)
     for k in l0:
         np.testing.assert_allclose(l1[k], l0[k], rtol=1e-9, err_msg=k)
     for k in g0:
@@ -453,6 +464,12 @@ def test_remat_and_query_chunks_same_step(port_runs, remat, chunks):
         assert float((g1[k] - g0[k]).abs().max()) <= tol, k
     for k in s0:
         torch.testing.assert_close(s1[k], s0[k], atol=1e-12, rtol=0)
+    if save:
+        lz, gz, sz, pz = run(remat, chunks)
+        assert l1 == lz
+        for got, want in ((g1, gz), (s1, sz), (p1, pz)):
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
 
 
 def test_train_multi_and_frozen_prefixes(setup):
@@ -485,3 +502,67 @@ def test_train_multi_and_frozen_prefixes(setup):
             assert moved == ('running' in k), k
     assert not torch.equal(after['sdf_decoder.fc_0.weight'],
                            before['sdf_decoder.fc_0.weight'])
+
+
+# ---- --checkify -----------------------------------------------------------------
+
+def _executor_state(ex):
+    """Parameters, buffers (the BatchNorm statistics), Adam state and step
+    of an executor, cloned."""
+    opt = ex.optimizer.state_dict()['state']
+    return dict(params={k: p.detach().clone()
+                        for k, p in ex.model.named_parameters()},
+                buffers={k: v.clone() for k, v in ex.model.named_buffers()},
+                adam={(i, k): v.clone() for i, st in opt.items()
+                      for k, v in st.items()},
+                step=ex.step)
+
+
+def _same_state(a, b):
+    assert a['step'] == b['step']
+    for part in ('params', 'buffers', 'adam'):
+        assert a[part].keys() == b[part].keys(), part
+        for k, v in a[part].items():
+            assert torch.equal(v, b[part][k]), (part, k)
+
+
+def test_checkify_raises_and_leaves_the_executor_as_it_was(setup):
+    """Port only (no checkified JAX step is compiled).  Under --checkify a
+    clean step is bit-identical to the unchecked one (losses, parameters,
+    BatchNorm statistics, Adam state); a NaN in the image raises
+    FloatingPointError and leaves the parameters, the Adam state, the
+    BatchNorm statistics and ``step`` as they were, with the model back in
+    eval mode; the finite check names the first non-finite loss, else the
+    first parameter whose gradient is not finite."""
+    cfg, batch, _, variables = setup
+
+    def make(checkify):
+        tm = LIST(**TINY, remat=True, train_query_chunks=2)
+        load_flax_variables(tm, variables)
+        return LISTExecutor(default_config(**CFG, checkify=checkify), tm,
+                            device='cpu')
+
+    plain, checked = make(False), make(True)
+    lp, lc = plain.train(batch)[1], checked.train(batch)[1]
+    assert {k: float(v) for k, v in lp.items()} == \
+        {k: float(v) for k, v in lc.items()}
+    clean = _executor_state(checked)
+    _same_state(clean, _executor_state(plain))
+
+    bad = dict(batch, rgb_image=batch['rgb_image'].copy())
+    bad['rgb_image'][1, 7, 9, 2] = np.nan
+    with pytest.raises(FloatingPointError):
+        checked.train(bad)
+    _same_state(_executor_state(checked), clean)
+    assert not checked.model.training and checked.step == 1
+
+    losses = {'occ_loss': torch.tensor(1.0),
+              'sdf_loss': torch.tensor(float('inf'))}
+    with pytest.raises(FloatingPointError, match='sdf_loss'):
+        checked._check_finite(losses)
+    losses['sdf_loss'] = torch.tensor(2.0)
+    p = checked.model.sdf_decoder.fc_1.weight
+    p.grad = torch.zeros_like(p)
+    p.grad[0, 0] = float('nan')
+    with pytest.raises(FloatingPointError, match='sdf_decoder.fc_1.weight'):
+        checked._check_finite(losses)

@@ -485,3 +485,34 @@ def test_train_refuses_cpu_fallback(e2e):
                                 dataset='datasets.Datasets.IM2PointFarthest'))
     with pytest.raises(RuntimeError, match='cuda'):
         train(cfg)
+
+
+class _StubExecutor:
+    """Records how the trainer steps it: single ``train`` calls or
+    ``train_multi`` groups."""
+
+    def __init__(self):
+        self.calls = []
+
+    def train(self, batch, calc_loss=True):
+        self.calls.append('train')
+        return None, {'loss': torch.tensor(float(batch))}
+
+    def train_multi(self, batches):
+        self.calls.append(f'train_multi {len(batches)}')
+        return None, {'loss': torch.tensor([float(b) for b in batches])}
+
+
+@pytest.mark.parametrize('checkify', [False, True])
+def test_step_losses_takes_single_steps_under_checkify(checkify):
+    """--steps_per_dispatch 2 groups steps through train_multi (a ragged
+    tail of single steps), except under --checkify, where every step is a
+    single, checked train() call, as in the JAX package; the losses come
+    back in order either way."""
+    from list_tpu_torch.train.trainer import _step_losses
+    cfg = default_config(steps_per_dispatch=2, checkify=checkify)
+    ex = _StubExecutor()
+    losses = [d['loss'] for d in _step_losses(ex, cfg, [1, 2, 3, 4, 5])]
+    assert losses == [1.0, 2.0, 3.0, 4.0, 5.0]
+    assert ex.calls == (['train'] * 5 if checkify else
+                        ['train_multi 2', 'train_multi 2', 'train'])
