@@ -138,38 +138,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from list_tpu_torch.device import card, time_ms
+from list_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def fail(msg: str) -> None:
     print(f'chip_smoke: FAIL: {msg}', file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def time_ms(fn, reps: int, warm: int = 2) -> float:
-    """Median CUDA-event time of one call, in ms."""
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    ts = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        ts.append(s.elapsed_time(e))
-    return float(np.median(ts))
-
-
-def card() -> str:
-    r = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                        '--format=csv,noheader'], capture_output=True,
-                       text=True, timeout=60)
-    if r.returncode != 0:
-        fail(f'nvidia-smi: {r.stderr.strip()}')
-    return r.stdout.strip().splitlines()[0]
 
 
 def _total(per, unit):
@@ -451,19 +428,6 @@ def mlp_cases(fused_fc0, args, n):
     return cases
 
 
-def reset_counts(stencil3d, fused_fc0) -> None:
-    stencil3d.launches = stencil3d.dx_launches = stencil3d.dk_launches = 0
-    fused_fc0.launches = fused_fc0.mlp_launches = 0
-
-
-def read_counts(stencil3d, fused_fc0) -> dict:
-    return dict(conv3x3x3=stencil3d.launches,
-                conv3x3x3_dx=stencil3d.dx_launches,
-                conv3x3x3_dk=stencil3d.dk_launches,
-                fused_stack_head=fused_fc0.launches,
-                fused_fc0_mlp=fused_fc0.mlp_launches)
-
-
 # K2 per train step: 5 forward + the same 5 recomputed under remat + dx of
 # the four convolutions whose input needs a gradient (not conv_0's: its
 # input is the occupancy grid); K3: one dk per convolution.
@@ -478,13 +442,13 @@ def train_path(ex, batches, stencil3d, fused_fc0):
     checked after every step."""
     ex.train(batches[0])
     torch.cuda.synchronize()
-    reset_counts(stencil3d, fused_fc0)
+    reset_launch_counts()
     steps = []
     for i, b in enumerate(batches[1:]):
-        before = read_counts(stencil3d, fused_fc0)
+        before = launch_counts()
         torch.cuda.reset_peak_memory_stats()
         _, losses = ex.train(b)
-        after = read_counts(stencil3d, fused_fc0)
+        after = launch_counts()
         rec = dict(step=i, step_s=ex.timings['step_s'],
                    peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                    losses={k: float(v) for k, v in losses.items()},
@@ -496,7 +460,7 @@ def train_path(ex, batches, stencil3d, fused_fc0):
         if rec['launches'] != STEP_LAUNCHES:
             fail(f'train step {i}: launches {rec["launches"]}, expected '
                  f'{STEP_LAUNCHES}')
-    total = read_counts(stencil3d, fused_fc0)
+    total = launch_counts()
     print('train path launches', json.dumps(total), flush=True)
     return steps, total
 
@@ -727,16 +691,16 @@ def overfit_phase(args, stencil3d, fused_fc0, card_line):
 
     def counted(kind):
         def call(self, *a, **kw):
-            before = read_counts(stencil3d, fused_fc0)
+            before = launch_counts()
             out = real[kind](self, *a, **kw)
-            after = read_counts(stencil3d, fused_fc0)
+            after = launch_counts()
             per[kind].append({k: after[k] - before[k] for k in after})
             return out
         return call
 
     for k in real:
         setattr(LISTExecutor, k, counted(k))
-    reset_counts(stencil3d, fused_fc0)
+    reset_launch_counts()
     try:
         rec = tool.main('cuda', OVERFIT_STEPS, args.seed,
                         log=lambda line: print(f'overfit| {line}',
@@ -744,7 +708,7 @@ def overfit_phase(args, stencil3d, fused_fc0, card_line):
     finally:
         for k, f in real.items():
             setattr(LISTExecutor, k, f)
-    total = read_counts(stencil3d, fused_fc0)
+    total = launch_counts()
     line = dict(card=card_line, steps=rec['steps'],
                 first_losses=rec['first_losses'],
                 last_losses=rec['last_losses'],
@@ -811,7 +775,7 @@ def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
     for k in real:
         setattr(LISTExecutor, k, timed(k))
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(stencil3d, fused_fc0)
+    reset_launch_counts()
     t0 = time.perf_counter()
     try:
         csv_path = test_all(cfg)
@@ -820,7 +784,7 @@ def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
             setattr(LISTExecutor, k, f)
     t1 = time.perf_counter()
     wall = t1 - t0
-    counts = read_counts(stencil3d, fused_fc0)
+    counts = launch_counts()
     if csv_path is None:
         fail(f'sweep {label}: no checkpoint loaded or no CSV written')
     with open(csv_path) as f:
@@ -977,13 +941,13 @@ def stage1_phase(args, stencil3d, fused_fc0):
     torch.cuda.synchronize()
     steps = []
     for i in range(TRAIN_STEPS):
-        reset_counts(stencil3d, fused_fc0)
+        reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         _, losses = ex.train(batch)
         rec = dict(step=i, batch=COARSE_BATCH, step_s=ex.timings['step_s'],
                    peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                    chamfer_loss=float(losses['chamfer_loss']),
-                   launches=read_counts(stencil3d, fused_fc0))
+                   launches=launch_counts())
         print('stage 1 step', json.dumps(rec), flush=True)
         steps.append(rec)
         if not np.isfinite(rec['chamfer_loss']):
@@ -1018,12 +982,12 @@ def driver_run(cfg, label, Executor, stencil3d, fused_fc0):
 
     def counted(kind):
         def call(self, batch, *a, **kw):
-            before = read_counts(stencil3d, fused_fc0)
+            before = launch_counts()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             out = real[kind](self, batch, *a, **kw)
             torch.cuda.synchronize()
-            after = read_counts(stencil3d, fused_fc0)
+            after = launch_counts()
             rec = dict(kind=kind, wall_s=time.perf_counter() - t0,
                        peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
                        launches={k: after[k] - before[k] for k in after})
@@ -1053,7 +1017,7 @@ def driver_run(cfg, label, Executor, stencil3d, fused_fc0):
     Executor.train, Executor.test = counted('train'), counted('test')
     trainer.train_one_epoch = walled('epoch')
     trainer.run_testlist = walled('testlist')
-    reset_counts(stencil3d, fused_fc0)
+    reset_launch_counts()
     t0 = time.perf_counter()
     try:
         trainer.train(cfg)
@@ -1062,7 +1026,7 @@ def driver_run(cfg, label, Executor, stencil3d, fused_fc0):
         trainer.train_one_epoch = real['epoch']
         trainer.run_testlist = real['testlist']
     rec = dict(driver=label, wall_s=time.perf_counter() - t0,
-               launches=read_counts(stencil3d, fused_fc0), events=events)
+               launches=launch_counts(), events=events)
     print('driver', json.dumps(rec, default=float), flush=True)
     return rec
 
@@ -1668,12 +1632,12 @@ def split_decode_check(cfg, model, img, fused_fc0, stencil3d, card_line):
         return out
 
     dense_grid.fused_stack_head = timed
-    reset_counts(stencil3d, fused_fc0)
+    reset_launch_counts()
     try:
         got = split.predict_grid(img, **grid)
     finally:
         dense_grid.fused_stack_head = real
-    counts = read_counts(stencil3d, fused_fc0)
+    counts = launch_counts()
     torch.cuda.synchronize()
     err = float(np.abs(got - ref).max())
     tol = 5e-4 + 2e-2 * float(np.abs(ref).max())
@@ -1967,7 +1931,7 @@ def main():
     print(f'fc_out bias shifted by {-shift:.6g}', flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(stencil3d, fused_fc0)
+    reset_launch_counts()
     requests = []
     for i, img in enumerate(imgs):
         np.random.seed(args.seed + i)
@@ -1985,7 +1949,7 @@ def main():
             fail(f'request {i}: empty mesh')
         if not score or not all(np.isfinite(v) for v in score.values()):
             fail(f'request {i}: metrics missing or not finite: {score}')
-    launches = read_counts(stencil3d, fused_fc0)
+    launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print('inference path launches', json.dumps(launches),
           f'peak_device_gb {peak_gb:.2f}', flush=True)

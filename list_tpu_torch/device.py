@@ -9,16 +9,70 @@ Importing the package switches TF32 off for both matmuls and cuDNN
 convolutions (``disable_tf32``): the JAX reference asks for full f32
 precision where it matters (its align-corners resize matrices), and cuDNN
 convolutions default to TF32 on Hopper.
+
+The card's data-sheet rates (``PEAK_RATES``, ``peak_rates``), its
+``nvidia-smi`` line (``card``) and the CUDA-event median of a call
+(``time_ms``) serve ``chip_smoke.py``, ``bench_torch.py`` and the kernels'
+bounds.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Union
+import statistics
+import subprocess
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+
+# Data-sheet peaks (NVIDIA's H100 SXM data sheet: dense rates at the 700 W
+# limit) by ``torch.cuda.get_device_name``: bf16 tensor-core and f32
+# (outside the tensor cores) TFLOP/s, HBM GB/s.
+PEAK_RATES: Dict[str, Dict[str, float]] = {
+    'NVIDIA H100 80GB HBM3': dict(bf16_tflops=989.0, f32_tflops=67.0,
+                                  mem_gbs=3350.0),
+}
+H100_SXM = PEAK_RATES['NVIDIA H100 80GB HBM3']
+
+
+def peak_rates(name: str) -> Dict[str, float]:
+    """The data-sheet rates of the card named ``name``; an unknown card
+    raises, so that no number is stated against another card's peak."""
+    try:
+        return PEAK_RATES[name]
+    except KeyError:
+        raise ValueError(f'list_tpu_torch: no data-sheet rates for {name!r} '
+                         f'(known: {sorted(PEAK_RATES)})') from None
+
+
+def card() -> str:
+    """The first card's ``nvidia-smi --query-gpu=name,power.limit`` line."""
+    r = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                        '--format=csv,noheader'], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        raise RuntimeError(f'nvidia-smi: {r.stderr.strip()}')
+    return r.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn: Callable[[], object], reps: int, warm: int = 2) -> float:
+    """Median CUDA-event time of one call of ``fn``, in ms, after ``warm``
+    calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        ts.append(s.elapsed_time(e))
+    return float(statistics.median(ts))
 
 
 def disable_tf32() -> None:

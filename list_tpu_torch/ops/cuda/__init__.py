@@ -11,3 +11,21 @@ version beside the wrapper:
 
 KERNEL_SOURCES = ('stencil3d', 'conv3x3x3_dk', 'fused_stack_head',
                   'fused_fc0_mlp')
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch counter to 0."""
+    from list_tpu_torch.ops.cuda import fused_fc0, stencil3d
+    stencil3d.launches = stencil3d.dx_launches = stencil3d.dk_launches = 0
+    fused_fc0.launches = fused_fc0.mlp_launches = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches since the last reset (``conv3x3x3_dx``: the
+    K2 launches made for a backward's dx, a subset of ``conv3x3x3``)."""
+    from list_tpu_torch.ops.cuda import fused_fc0, stencil3d
+    return dict(conv3x3x3=stencil3d.launches,
+                conv3x3x3_dx=stencil3d.dx_launches,
+                conv3x3x3_dk=stencil3d.dk_launches,
+                fused_stack_head=fused_fc0.launches,
+                fused_fc0_mlp=fused_fc0.mlp_launches)

@@ -46,6 +46,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from list_tpu_torch.device import H100_SXM
 from list_tpu_torch.ops.cuda import build
 
 SOURCE = 'list_tpu_torch/csrc/fused_stack_head.cu'
@@ -250,8 +251,8 @@ def fused_fc0_mlp(stacks: Sequence[torch.Tensor], percep: torch.Tensor,
 
 
 def bound_ms(n: int, Ks: Sequence[int], coarse_bytes: int = 2,
-             q_cols: int = 3, mem_gbs: float = 3350.0,
-             bf16_tflops: float = 989.0) -> tuple:
+             q_cols: int = 3, mem_gbs: float = H100_SXM['mem_gbs'],
+             bf16_tflops: float = H100_SXM['bf16_tflops']) -> tuple:
     """(least time in ms on an H100 SXM, 'bytes' or 'operations') of a
     fused head over operand widths ``Ks`` (K1: the parts' K_i; K4: 7 * C_s
     per scale, with ``coarse_bytes=0``): parts or stacks,

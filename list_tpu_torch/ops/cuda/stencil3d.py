@@ -25,6 +25,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from list_tpu_torch.device import H100_SXM
 from list_tpu_torch.ops.cuda import build
 
 SOURCE = 'list_tpu_torch/csrc/stencil3d.cu'
@@ -188,8 +189,8 @@ def conv3x3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return Conv3x3x3Fn.apply(x, w)
 
 
-def bound_ms(x_shape, co: int, mem_gbs: float = 3350.0,
-             f32_tflops: float = 67.0) -> tuple:
+def bound_ms(x_shape, co: int, mem_gbs: float = H100_SXM['mem_gbs'],
+             f32_tflops: float = H100_SXM['f32_tflops']) -> tuple:
     """(least time in ms on an H100 SXM, 'bytes' or 'operations') for one
     call of K2 or K3 on input shape ``x_shape`` with ``co`` output
     channels: both read one Ci-channel and one Co-channel volume and write

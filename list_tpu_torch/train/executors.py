@@ -310,9 +310,10 @@ class LISTExecutor(BaseExecutor):
                              f'{torch.cuda.device_count()}')
         return [torch.device('cuda', i) for i in range(n)]
 
-    def _dense_plan(self, ndev: int = 1):
-        """(slab, use_pallas) of the dense decode; slab None means the
-        chunked decoder.  The slab is the JAX package's: the whole grid in
+    def _dense_plan(self, ndev: int = 1, vox_res: Optional[int] = None):
+        """(slab, use_pallas) of the dense decode of an R^3 grid (R:
+        ``vox_res``, else the executor's); slab None means the chunked
+        decoder.  The slab is the JAX package's: the whole grid in
         one slab for the fused head at R <= 128 on one device, else the
         largest of (64, 32, 16, 8, 4, 2) (above R = 192: (8, 4, 2)) that
         divides R into a slab count divisible by the ``ndev`` devices of a
@@ -325,7 +326,7 @@ class LISTExecutor(BaseExecutor):
         f32-upcast plain function) is 2.4x slower than K1, so -1 is K1 at
         every R (PERF.md).  K1 takes any query count, so the JAX package's
         Pallas tile gate is not needed."""
-        R = self.vox_res
+        R = self.vox_res if vox_res is None else int(vox_res)
         cfg_up = int(getattr(self.config, 'use_pallas', -1))
         on_card = self.device.type == 'cuda'
         head = (2 if cfg_up == -1 else cfg_up) if on_card else 0

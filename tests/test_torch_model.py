@@ -144,3 +144,27 @@ def test_dense_grid_coarse_term_is_used(pair, monkeypatch):
                        tenc['trans_mat'], R, compute_dtype=torch.bfloat16,
                        **kw)
     assert seen == [None, torch.float32, torch.bfloat16]
+
+
+def test_dense_grid_fine_grid_matches_the_xla_head(pair):
+    """The grid at twice the features' resolution (R = 32 from the 16^3
+    features), as the executor decodes 256^3 from 128^3 features: slab 8,
+    no hoisted z/y variants and the coarse term inside the scan (their
+    automatic settings above R = 128), with scales of 8^3 and below
+    projected (coarse_proj 8, so that the 16^3 scale is kept as 128^3 is
+    at R = 256).  The port's use_pallas=2 (K1's plain version on the CPU)
+    against the JAX package's XLA head (use_pallas=False), f32: atol 2e-4,
+    rtol 1e-3."""
+    _, v, jenc, tm, tenc = pair
+    kw = dict(slab=8, coarse_proj=8, coarse_outside=False,
+              hoist_variants=False)
+    ref = np.asarray(j_dense(
+        v['params']['sdf_decoder'], jenc['vox_feat'], jenc['feat_l2'],
+        jenc['trans_mat'], 2 * R, compute_dtype=jnp.float32,
+        use_pallas=False, **kw))
+    got = dense_grid_sdf(tm.sdf_decoder, tenc['vox_feat'], tenc['feat_l2'],
+                         tenc['trans_mat'], 2 * R,
+                         compute_dtype=torch.float32, use_pallas=2,
+                         **kw).numpy()
+    assert got.shape == (2 * R,) * 3
+    np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
