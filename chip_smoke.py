@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (list_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--requests 3] [--report out.json]
+    python3 chip_smoke.py --cards 4 [--report out.json]
 
 Run from the repository root.  Phases (any failure exits non-zero):
 
@@ -121,6 +122,43 @@ Every kernel's launch counter is set to 0 just before each path and read
 just after it.
 
 ``--report PATH`` also writes every number of the run to one JSON file.
+
+The multi-card mode, ``python3 chip_smoke.py --cards 4`` (exits non-zero
+unless the machine has that many cards; ``--report`` as above), runs
+instead of the phases above, with cuda:0 the current device throughout:
+
+1. Every card's nvidia-smi line; the kernels built once, while a process
+   of its own writes a synthetic ShapeNet tree of 48 shapes a card (one
+   224x224 view a shape) with its 128^3 occupancy caches.
+2. On cuda:1 .. N-1: K2 at the train step's shapes, K3, K1 and K4 at the
+   kernel phase's shapes, and the differentiable conv3x3x3 (K2's dx and
+   K3 through its backward), each held to its plain version within the
+   kernel phase's tolerances and 1e-2 + 1e-2 |plain|, timed on its card;
+   the current device must stay cuda:0.
+3. The dense decode split over cuda:0 .. N-1 (``--mesh_shape N`` and
+   ``--mesh_shape 1 N``) from one 128^3 encoding, at 128^3 and 256^3,
+   against one card's: the grid bit for bit (else within atol 5e-4 /
+   rtol 2e-2), K1's launches, and the decode's host-clock seconds and
+   each card's CUDA-event seconds on one card, split (a host thread a
+   card), and split from one host thread; ``predict_grid``,
+   ``predict_grid_batch`` and ``test`` under both mesh shapes; then
+   ``test_all`` over the 8 synthetic test shapes on one card and under
+   both mesh shapes, every row held to one card's.
+4. N NCCL ranks (this script with ``--card_rank``, rank r on cuda:r,
+   logs ``build/chip_smoke_cards/rank<r>.log``): ``train_torch.main`` with
+   ``--multihost 1`` on the tree at the stage-2 recipe (128^3, 32,768
+   queries, remat, ``--remat_save_samples 1``, 4 query chunks) at 2 and 8
+   a card and stage 1 at 16 a card (step_s, peak memory and launches per
+   step and rank; the ranks' parameters, BatchNorm statistics and Adam
+   moments bit-identical after each run), the small step at a global
+   batch of 4 (held to one process by ``card_gradient_check``), and
+   ``infer_torch.main`` with ``--multihost 1`` over the 8 test shapes
+   (each rank's ``_p{rank}.csv`` rows held to the one-card sweep's); then
+   the offline evaluation of their meshes.
+5. One full-width stage-2 step (after a warm one) and one 128^3 mesh
+   through ``LISTExecutor(..., device='cuda:N-1')`` in this process.
+
+It prints a ``cards`` JSON line, then the device line with ``count`` N.
 """
 
 import argparse
@@ -171,7 +209,7 @@ def conv_phase(dev, stencil3d, batch, shapes, unit, plain_reps=5):
         w = ((torch.rand(co, ci, 3, 3, 3, generator=g) * 2 - 1)
              * bound).to(dev)
         y = stencil3d.conv3x3x3(x, w)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         ref = stencil3d.conv3x3x3_plain(x, w)
         err = float((y - ref).abs().max())
         tol = 1e-4 + 1e-4 * float(ref.abs().max())
@@ -179,12 +217,14 @@ def conv_phase(dev, stencil3d, batch, shapes, unit, plain_reps=5):
         b_ms, b_by = stencil3d.bound_ms(tuple(x.shape), co)
         row = dict(shape=f'{ci}->{co} @{batch}x128^3', calls=count,
                    max_abs_err=err, tol=tol, ok=ok,
-                   ms=time_ms(lambda: stencil3d.conv3x3x3(x, w), 20),
+                   within_head_tol=_within_head_tol(y, ref),
+                   ms=time_ms(lambda: stencil3d.conv3x3x3(x, w), 20,
+                              device=dev),
                    plain_ms=time_ms(
                        lambda: stencil3d.conv3x3x3_plain(x, w), plain_reps,
-                       1),
+                       1, device=dev),
                    library_ms=time_ms(
-                       lambda: F.conv3d(x, w, padding=1), 20),
+                       lambda: F.conv3d(x, w, padding=1), 20, device=dev),
                    bound_ms=b_ms, bound_by=b_by)
         print('kernel conv3x3x3', json.dumps(row), flush=True)
         per.append(row)
@@ -193,6 +233,12 @@ def conv_phase(dev, stencil3d, batch, shapes, unit, plain_reps=5):
     if not all(r['ok'] for r in per):
         fail('conv3x3x3 disagrees with its plain version')
     return _total(per, unit)
+
+
+# K2 in a train step at batch 8 (Ci, Co, launches): forward 1->1 x3,
+# 1->16, 16->16, twice (remat), and dx 1->1 x2, 16->1, 16->16
+TRAIN_CONV_SHAPES = ((1, 1, 8), (1, 16, 2), (16, 16, 3), (16, 1, 1))
+TRAIN_CONV_UNIT = 'train step (14 launches, batch 8, 128^3)'
 
 
 def dk_phase(dev, stencil3d, batch=8):
@@ -206,7 +252,7 @@ def dk_phase(dev, stencil3d, batch=8):
         x = torch.rand(batch, ci, 128, 128, 128, generator=g).to(dev)
         dy = torch.randn(batch, co, 128, 128, 128, generator=g).to(dev)
         dk = stencil3d.conv3x3x3_dk(x, dy)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         ref = stencil3d.conv3x3x3_dk_plain(x, dy)
         err = float((dk - ref).abs().max())
         tol = 1e-4 * float(ref.abs().max())
@@ -217,11 +263,14 @@ def dk_phase(dev, stencil3d, batch=8):
         row = dict(shape=f'{ci}->{co} @{batch}x128^3', calls=count,
                    max_abs_err=err, max_abs_plain=float(ref.abs().max()),
                    tol=tol, bit_identical_rerun=same, ok=ok,
-                   ms=time_ms(lambda: stencil3d.conv3x3x3_dk(x, dy), 10),
+                   within_head_tol=_within_head_tol(dk, ref),
+                   ms=time_ms(lambda: stencil3d.conv3x3x3_dk(x, dy), 10,
+                              device=dev),
                    plain_ms=time_ms(
-                       lambda: stencil3d.conv3x3x3_dk_plain(x, dy), 3, 1),
+                       lambda: stencil3d.conv3x3x3_dk_plain(x, dy), 3, 1,
+                       device=dev),
                    library_ms=time_ms(lambda: torch.nn.grad.conv3d_weight(
-                       x, wshape, dy, padding=1), 10),
+                       x, wshape, dy, padding=1), 10, device=dev),
                    bound_ms=b_ms, bound_by=b_by)
         print('kernel conv3x3x3_dk', json.dumps(row), flush=True)
         per.append(row)
@@ -251,11 +300,12 @@ def grad_fn_phase(dev, stencil3d, batch=2):
         (y * r).sum().backward()
         xp, wp = x0.clone().requires_grad_(), w0.clone().requires_grad_()
         (stencil3d.conv3x3x3_plain(xp, wp) * r).sum().backward()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(dev)
         row = dict(shape=f'{ci}->{co} @{batch}x128^3')
         for name, a, b in (('dx', x.grad, xp.grad), ('dk', w.grad, wp.grad)):
             row[f'{name}_max_abs_err'] = float((a - b).abs().max())
             row[f'{name}_tol'] = 1e-4 * float(b.abs().max())
+            row[f'{name}_within_head_tol'] = _within_head_tol(a, b)
         row['ok'] = all(row[f'{n}_max_abs_err'] <= row[f'{n}_tol']
                         for n in ('dx', 'dk'))
         print('conv3x3x3 gradients', json.dumps(row), flush=True)
@@ -298,15 +348,20 @@ def _library_head(a, w1cat, adds, q, tail):
     return h @ w4 + b4.to(bf)
 
 
+def _within_head_tol(y, ref) -> bool:
+    """|y - ref| <= 1e-2 + 1e-2 |ref| everywhere (the fused heads'
+    tolerance)."""
+    return bool(((y - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all())
+
+
 def _head_check(kernel, plain, args):
     """(output, max |kernel - plain|, within 1e-2 + 1e-2 |plain| and
     finite, max |plain|) of a fused head on the card."""
     y = kernel(*args)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(y.device)
     ref = plain(*args)
     err = float((y - ref).abs().max())
-    tol_ok = bool(((y - ref).abs() <= 1e-2 + 1e-2 * ref.abs()).all())
-    return (y, err, bool(torch.isfinite(y).all()) and tol_ok,
+    return (y, err, bool(torch.isfinite(y).all()) and _within_head_tol(y, ref),
             float(ref.abs().max()))
 
 
@@ -316,13 +371,14 @@ def _head_row(name, kernel, plain, library, args, shape, bound,
     1e-2 + 1e-2 |plain|) and timed beside it and the library chain;
     ``after()``'s keys, read right after the checked launch, join the
     row."""
-    _, err, ok, max_plain = _head_check(kernel, plain, args)
+    y, err, ok, max_plain = _head_check(kernel, plain, args)
+    dev = y.device
     row = dict(shape=shape, **after(), max_abs_err=err,
                tol='1e-2 + 1e-2*|plain|', ok=ok, max_abs_plain=max_plain,
-               ms=time_ms(lambda: kernel(*args), 10),
-               plain_ms=time_ms(lambda: plain(*args), 3, 1),
-               library_ms=time_ms(library, 10), bound_ms=bound[0],
-               bound_by=bound[1])
+               ms=time_ms(lambda: kernel(*args), 10, device=dev),
+               plain_ms=time_ms(lambda: plain(*args), 3, 1, device=dev),
+               library_ms=time_ms(library, 10, device=dev),
+               bound_ms=bound[0], bound_by=bound[1])
     print(f'kernel {name}', json.dumps(row), flush=True)
     if not ok:
         fail(f'{name} disagrees with its plain version')
@@ -415,7 +471,7 @@ def mlp_cases(fused_fc0, args, n):
         case = dict(case=label, staging=list(fused_fc0.mlp_staging),
                     max_abs_err=err, ok=ok,
                     same_as_production=bool(torch.equal(got, y[:rows])),
-                    ms=time_ms(lambda: kernel(*a), 5))
+                    ms=time_ms(lambda: kernel(*a), 5, device=y.device))
         print('kernel fused_fc0_mlp case', json.dumps(case), flush=True)
         cases.append(case)
         del a, got
@@ -737,6 +793,7 @@ def overfit_phase(args, stencil3d, fused_fc0, card_line):
 
 
 SWEEP_SHAPES = 8  # the synthetic test split
+SWEEP_CAT = 'synthetic'  # its category
 SWEEP_DROPPED = (1, 2, 3, 5)  # cached meshes deleted before the 2nd sweep
 # each sweep's device phase (s) and fresh meshes/s when predict_grid still
 # synchronized and the fetch copied on the default stream (PERF.md §5; NVIDIA
@@ -747,8 +804,10 @@ SWEEP_SYNCHRONIZED_FETCH = {
                                             fresh_meshes_per_s=0.187)}
 
 
-def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
-    """One ``test_all`` sweep on the card: the whole wall (model build and
+def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES,
+              run=None):
+    """One ``test_all`` sweep on the card (``run()``, returning the CSV
+    path: ``test_all(cfg)`` by default): the whole wall (model build and
     checkpoint load included), the device phase (from the first device
     call's start to the CSV) and fresh meshes per second of it, each device
     call's encode_s/decode_s, peak device memory and the launch counts (set
@@ -778,7 +837,7 @@ def sweep_run(cfg, label, stencil3d, fused_fc0, shapes=SWEEP_SHAPES):
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        csv_path = test_all(cfg)
+        csv_path = test_all(cfg) if run is None else run()
     finally:
         for k, f in real.items():
             setattr(LISTExecutor, k, f)
@@ -830,27 +889,20 @@ def band_check(ex, img):
                                and np.array_equal(a[1], b[1]))), full
 
 
-def sweep_phase(args, stencil3d, fused_fc0):
-    """The test-split sweep at full width and 128^3 (module docstring,
-    phase 5)."""
+def _sweep_checkpoint(args, base):
+    """The sweep's checkpoint under ``base``'s output directory: seeded
+    weights, fc_out's bias set so the first test image's grid has its
+    median at zero -> (model, its executor on the card, that image, the
+    checkpoint's path)."""
     from list_tpu_torch.config import default_config
     from list_tpu_torch.data import SyntheticSDFDataset
     from list_tpu_torch.models import LIST
     from list_tpu_torch.train import LISTExecutor
     from list_tpu_torch.train.checkpoints import save_checkpoint
-    root = os.path.join(HERE, 'build', 'chip_smoke_sweep')
-    shutil.rmtree(root, ignore_errors=True)
-    base = dict(model='network.models.LIST',
-                dataset='datasets.Datasets.Synthetic', vox_res=128,
-                sdf_scale=10.0, eval_pred=True, output_dir=root + '/',
-                exp_name='sweep')
-    cfg = default_config(use_pallas=1, **base)
-
-    # the checkpoint: seeded weights, fc_out's bias set so the first test
-    # image's grid has its median at zero
+    cfg = default_config(**base)
     torch.manual_seed(args.seed)
     model = LIST.from_config(cfg)
-    ex = LISTExecutor(default_config(**base), model)
+    ex = LISTExecutor(cfg, model)
     img = SyntheticSDFDataset(cfg, 'test').get_testdata(
         'synthetic', '0', 0)['rgb_image']
     shift = float(np.median(ex.predict_grid(img, fetch_mode='grid'))) \
@@ -861,6 +913,21 @@ def sweep_phase(args, stencil3d, fused_fc0):
     save_checkpoint(0, model, 0.5, ckpt)
     print(f'sweep checkpoint {os.path.relpath(ckpt, HERE)}, fc_out bias '
           f'shifted by {-shift:.6g}', flush=True)
+    return model, ex, img, ckpt
+
+
+def sweep_phase(args, stencil3d, fused_fc0):
+    """The test-split sweep at full width and 128^3 (module docstring,
+    phase 5)."""
+    from list_tpu_torch.config import default_config
+    root = os.path.join(HERE, 'build', 'chip_smoke_sweep')
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(model='network.models.LIST',
+                dataset='datasets.Datasets.Synthetic', vox_res=128,
+                sdf_scale=10.0, eval_pred=True, output_dir=root + '/',
+                exp_name='sweep')
+    cfg = default_config(use_pallas=1, **base)
+    model, ex, img, ckpt = _sweep_checkpoint(args, base)
 
     # the band fetch on the card: the sweep's weights, then weights whose
     # surface fits the band (3% of the grid negative), which must not
@@ -971,10 +1038,12 @@ def stage1_phase(args, stencil3d, fused_fc0):
     return dict(steps=steps, gradient_check=check)
 
 
-def driver_run(cfg, label, Executor, stencil3d, fused_fc0):
-    """``trainer.train(cfg)`` on the card, with each optimizer step's and
-    testlist shape's launch counts (read around the call), step_s and peak
-    memory, and each epoch's and testlist eval's wall recorded."""
+def driver_run(cfg, label, Executor, stencil3d, fused_fc0, run=None,
+               seen=None):
+    """``trainer.train(cfg)`` (or ``run()``) on the card, with each
+    optimizer step's and testlist shape's launch counts (read around the
+    call), step_s and peak memory, and each epoch's and testlist eval's
+    wall recorded; ``seen`` (a list) gets the executor of every step."""
     from list_tpu_torch.train import trainer
     events = []
     real = dict(train=Executor.train, test=Executor.test,
@@ -994,6 +1063,8 @@ def driver_run(cfg, label, Executor, stencil3d, fused_fc0):
             if kind == 'train':
                 rec['step_s'] = self.timings['step_s']
                 rec['losses'] = {k: float(v) for k, v in out[1].items()}
+                if seen is not None:
+                    seen.append(self)
             elif isinstance(out[0], list):  # LIST: [mesh, grid], scores
                 mesh, grid = out[0]
                 rec.update(vertices=len(mesh.vertices), scores=out[1],
@@ -1020,7 +1091,7 @@ def driver_run(cfg, label, Executor, stencil3d, fused_fc0):
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        trainer.train(cfg)
+        trainer.train(cfg) if run is None else run()
     finally:
         Executor.train, Executor.test = real['train'], real['test']
         trainer.train_one_epoch = real['epoch']
@@ -1826,6 +1897,705 @@ def dist_phase(args, stencil3d, fused_fc0, card_line, sweep):
                 wall_s=time.perf_counter() - t_phase)
 
 
+# ---- the multi-card mode (--cards N) ----------------------------------------
+
+# shapes a card in the NCCL ranks' training tree: one epoch of each job
+# takes 3 steps or more, and no step waits for a checkpoint that rank 0
+# writes at an epoch's end
+CARDS_TREE_SHAPES = 48
+CARDS_CAT = '03001627'
+# per-card batches of the NCCL ranks' train_torch.py runs (global: x N)
+CARDS_JOBS = (('stage 2, 2 a card', 'network.models.LIST', 2),
+              ('stage 2, 8 a card', 'network.models.LIST', 8),
+              ('stage 1, 16 a card', 'network.models.CoarseNet', 16))
+CARDS_DECODE_REPS = 3  # timed split decodes a plan, after one warm
+CARDS_RANK_TIMEOUT_S = 600
+# the training tree: written by a process of its own while the card
+# phases run, with stage 2's occupancy caches, so that the ranks only read
+TREE_SCRIPT = '''
+import sys
+from list_tpu_torch.config import default_config
+from list_tpu_torch.data import IM2SDF, generate_synthetic_shapenet
+root, n, cat = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+generate_synthetic_shapenet(root, cats=(cat,), n_shapes=n, n_views=1,
+                            img_res=224)
+IM2SDF(default_config(image_dir=root + '/images/',
+                      h5_dir=root + '/sampled_points/',
+                      split_dir=root + '/split', catlist=[cat], viewnum=1,
+                      vox_res=128), 'train').ensure_occupancies()
+'''
+
+
+def _sync(devs) -> None:
+    for d in devs:
+        torch.cuda.synchronize(d)
+
+
+def _current_is_first(where: str) -> None:
+    if torch.cuda.current_device() != 0:
+        fail(f'{where}: the current device moved to cuda:'
+             f'{torch.cuda.current_device()}')
+
+
+def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
+    """The kernel phase's checks on each card of ``devs`` while cuda:0
+    stays the current device: K2 at the train step's shapes (batch 8,
+    forward and the dx shape), K3 at its three shapes, K1 at the
+    production decode (n = 128^3) and K4 at one slab (n = 64 x 128^2),
+    and the differentiable conv3x3x3 (K2's dx and K3 inside
+    Conv3x3x3Fn.backward, batch 2); each against its plain version within
+    the kernel phase's tolerances and 1e-2 + 1e-2 |plain|, and timed with
+    CUDA events on its card."""
+    rows = []
+    for d in devs:
+        reset_launch_counts()
+        with torch.inference_mode():
+            conv = conv_phase(d, stencil3d, 8, TRAIN_CONV_SHAPES,
+                              TRAIN_CONV_UNIT, plain_reps=2)
+            dk = dk_phase(d, stencil3d)
+            head = head_phase(d, fused_fc0, 128 ** 3)
+            torch.cuda.empty_cache()
+            mlp = mlp_phase(d, fused_fc0, 64 * 128 ** 2)
+        grads = grad_fn_phase(d, stencil3d)
+        counts = launch_counts()
+        _current_is_first(f'the kernels on {d}')
+        within = dict(
+            conv3x3x3=all(r['within_head_tol'] for r in conv['per_shape']),
+            conv3x3x3_dk=all(r['within_head_tol'] for r in dk['per_shape']),
+            conv3x3x3_dx=all(r['dx_within_head_tol'] for r in grads),
+            conv3x3x3_dk_backward=all(r['dk_within_head_tol']
+                                      for r in grads),
+            fused_stack_head=head['ok'], fused_fc0_mlp=mlp['ok'])
+        row = dict(device=str(d), card=lines[d.index], launches=counts,
+                   within_1e2_plus_1e2_plain=within,
+                   ms=dict(conv3x3x3_step=conv['ms'],
+                           conv3x3x3_dk_step=dk['ms'],
+                           fused_stack_head=head['ms'],
+                           fused_fc0_mlp=mlp['ms']),
+                   max_abs_err=dict(conv3x3x3=conv['max_abs_err'],
+                                    conv3x3x3_dk=dk['max_abs_err'],
+                                    fused_stack_head=head['max_abs_err'],
+                                    fused_fc0_mlp=mlp['max_abs_err']),
+                   conv=conv, dk=dk, head=head, mlp=mlp, gradients=grads)
+        print('card kernels', json.dumps({k: row[k] for k in (
+            'device', 'card', 'launches', 'within_1e2_plus_1e2_plain', 'ms',
+            'max_abs_err')}), flush=True)
+        if not all(within.values()):
+            fail(f'a kernel on {d} is off its plain version by more than '
+                 f'1e-2 + 1e-2 |plain|: {within}')
+        if not all(counts.values()):
+            fail(f'a kernel was not launched on {d}: {counts}')
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _serial_decode(ex, enc, slab, head):
+    """``LISTExecutor._decode``'s split before its host threads: one host
+    thread dispatches the cards one after another (each with its card
+    current), for the comparison only."""
+    from list_tpu_torch.train import executors
+    devs = ex.decode_devices
+    rows = ex.vox_res // len(devs)
+    parts = []
+    for i, d in enumerate(devs):
+        dec = ex.model.sdf_decoder if d == ex.device \
+            else copy.deepcopy(ex.model.sdf_decoder).to(d)
+        with torch.cuda.device(d):
+            parts.append(executors.dense_grid_sdf(
+                dec, [f.to(d) for f in enc['vox_feat']],
+                [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d),
+                ex.vox_res, slab=slab, compute_dtype=ex.compute_dtype,
+                bb_min=ex.bb_min, bb_max=ex.bb_max, use_pallas=head,
+                x_range=(i * rows, (i + 1) * rows)))
+    return torch.cat([p.to(ex.device) for p in parts])
+
+
+def _timed_decodes(devs, decode, reps=CARDS_DECODE_REPS):
+    """``decode()`` 1 + ``reps`` times, each between synchronizations of
+    ``devs``: the median host-clock seconds of a decode and, per card, the
+    median CUDA-event seconds of its ``dense_grid_sdf`` call(s) (events on
+    the card's stream, recorded with it current); then one more decode as
+    a probe of the host: per card, the host seconds of its
+    ``dense_grid_sdf`` call(s), and the count and host seconds of the host
+    arrays uploaded to it there (``torch.as_tensor`` onto a card copies
+    from pageable memory and waits on the card's stream)."""
+    from list_tpu_torch.train import executors
+    real, as_tensor = executors.dense_grid_sdf, torch.as_tensor
+    marks, uploads = [], []
+
+    def timed(*a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        s.record()
+        out = real(*a, **kw)
+        e.record()
+        marks.append((torch.cuda.current_device(), s, e,
+                      time.perf_counter() - t0))
+        return out
+
+    def upload(data, *a, **kw):
+        t0 = time.perf_counter()
+        out = as_tensor(data, *a, **kw)
+        if out.device.type == 'cuda' and not isinstance(data, torch.Tensor):
+            uploads.append((out.device.index, time.perf_counter() - t0))
+        return out
+
+    executors.dense_grid_sdf = timed
+    host, per_card = [], []
+    try:
+        for rep in range(reps + 2):
+            marks.clear()
+            if rep == reps + 1:
+                torch.as_tensor = upload
+            _sync(devs)
+            t0 = time.perf_counter()
+            grid = decode()
+            _sync(devs)
+            if rep <= reps:
+                host.append(time.perf_counter() - t0)
+            card = {}
+            for i, s, e, _ in marks:
+                card[f'cuda:{i}'] = card.get(f'cuda:{i}', 0.0) \
+                    + s.elapsed_time(e) / 1e3
+            per_card.append(card)
+    finally:
+        executors.dense_grid_sdf = real
+        torch.as_tensor = as_tensor
+    keys = sorted(per_card[-1])
+    probe = {k: dict(host_s=sum(m[3] for m in marks
+                                if f'cuda:{m[0]}' == k),
+                     uploads=sum(1 for u in uploads if f'cuda:{u[0]}' == k),
+                     upload_s=sum(u[1] for u in uploads
+                                  if f'cuda:{u[0]}' == k))
+             for k in keys}
+    return grid, dict(
+        host_s=float(np.median(host[1:])), host_all_s=host,
+        card_s={k: float(np.median([c[k] for c in per_card[1:-1]]))
+                for k in keys}, probe=probe)
+
+
+def cards_decode_phase(args, devs, lines, model, imgs, gt):
+    """The dense decode split over ``devs`` (``--mesh_shape N`` and
+    ``--mesh_shape 1 N``) against one card (cuda:0) from the same encoding:
+    at 128^3 and 256^3 (the 128^3 features), the grid bit for bit (else
+    within atol 5e-4 / rtol 2e-2), the K1 launches, and the decode's
+    host-clock and per-card event times on one card, split with the
+    executor's host thread a card, and split from one host thread
+    (``_serial_decode``); then ``predict_grid`` under both mesh shapes,
+    ``predict_grid_batch`` of two images and ``test`` of one against one
+    card's."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.train import LISTExecutor
+    n = len(devs)
+    shapes = ([n], [1, n])
+    grid_kw = dict(fetch_dtype='float32', fetch_mode='grid')
+    out = dict(decode={})
+    img = torch.as_tensor(imgs[0], device=devs[0])
+    with torch.inference_mode():
+        enc = model.encode(img)
+    for R in (128, 256):
+        mk = lambda **kw: LISTExecutor(default_config(  # noqa: E731
+            vox_res=R, sdf_scale=10.0, **kw), model)
+        one = mk()
+        split = {tuple(s): mk(mesh_shape=s) for s in shapes}
+        for s, ex in split.items():
+            if ex.decode_devices != (devs if n > 1 else [one.device]):
+                fail(f'--mesh_shape {list(s)}: decode devices '
+                     f'{ex.decode_devices}, expected {devs}')
+        ex = split[(n,)]
+        plan1, plan = one._dense_plan(1), ex._dense_plan(n)
+        rec = dict(card=lines, R=R, plan_one_card=plan1, plan_split=plan)
+        with torch.inference_mode():
+            for d in devs:
+                torch.cuda.reset_peak_memory_stats(d)
+            reset_launch_counts()
+            g1, rec['one_card'] = _timed_decodes(
+                devs, lambda: one._decode(enc, *plan1))
+            rec['one_card_launches'] = launch_counts()
+            reset_launch_counts()
+            g, rec['split'] = _timed_decodes(
+                devs, lambda: ex._decode(enc, *plan))
+            rec['split_launches'] = launch_counts()
+            gs, rec['split_one_thread'] = _timed_decodes(
+                devs, lambda: _serial_decode(ex, enc, *plan))
+            rec['peak_device_gb'] = {
+                str(d): torch.cuda.max_memory_allocated(d) / 1e9
+                for d in devs}
+            err = float((g - g1).abs().max())
+            tol = 5e-4 + 2e-2 * float(g1.abs().max())
+            rec.update(bitwise=bool(torch.equal(g, g1)),
+                       one_thread_bitwise=bool(torch.equal(gs, g)),
+                       max_abs_err=err, tol=tol)
+            del g, g1, gs
+        want = dict(NO_LAUNCHES, fused_stack_head=(CARDS_DECODE_REPS + 2)
+                    * R // plan[0])
+        want1 = dict(NO_LAUNCHES, fused_stack_head=(CARDS_DECODE_REPS + 2)
+                     * R // plan1[0])
+        print('cards decode', json.dumps(rec), flush=True)
+        if rec['split_launches'] != want or rec['one_card_launches'] != want1:
+            fail(f'{R}^3 decode: launches {rec["split_launches"]} split and '
+                 f'{rec["one_card_launches"]} on one card, expected {want} '
+                 f'and {want1}')
+        if not (rec['one_thread_bitwise'] and err <= tol):
+            fail(f'{R}^3: the split decode disagrees with one card\'s')
+        # predict_grid under both mesh shapes
+        ref = one.predict_grid(imgs[0], **grid_kw)
+        rec_p = dict(R=R, decode_s_one_card=one.timings['decode_s'])
+        for s, sx in split.items():
+            got = sx.predict_grid(imgs[0], **grid_kw)
+            rec_p[f'mesh_shape {list(s)}'] = dict(
+                decode_s=sx.timings['decode_s'],
+                bitwise=bool(np.array_equal(got, ref)),
+                max_abs_err=float(np.abs(got - ref).max()))
+            if not (np.isfinite(got).all()
+                    and rec_p[f'mesh_shape {list(s)}']['max_abs_err']
+                    <= 5e-4 + 2e-2 * float(np.abs(ref).max())):
+                fail(f'predict_grid at {R}^3 under --mesh_shape {list(s)} '
+                     'disagrees with one card\'s')
+        print('cards predict_grid', json.dumps(rec_p), flush=True)
+        out['decode'][R] = dict(rec, predict_grid=rec_p)
+        del one, split, ex, ref
+        torch.cuda.empty_cache()
+
+    # predict_grid_batch and test at 128^3
+    mk = lambda **kw: LISTExecutor(default_config(  # noqa: E731
+        vox_res=128, sdf_scale=10.0, **kw), model)
+    one = mk()
+    batch = np.concatenate(imgs[:2])
+    ref = one.predict_grid_batch(batch, **grid_kw)
+    np.random.seed(args.seed)
+    (mesh1, _), score1 = one.test({'rgb_image': imgs[0], 'gt_mesh': gt},
+                                  eval_pred=True)
+    other = {}
+    for s in shapes:
+        ex = mk(mesh_shape=s)
+        reset_launch_counts()
+        got = ex.predict_grid_batch(batch, **grid_kw)
+        np.random.seed(args.seed)
+        (mesh, _), score = ex.test({'rgb_image': imgs[0], 'gt_mesh': gt},
+                                   eval_pred=True)
+        counts = launch_counts()
+        other[f'mesh_shape {list(s)}'] = r = dict(
+            batch_bitwise=bool(np.array_equal(got, ref)),
+            batch_max_abs_err=float(np.abs(got - ref).max()),
+            mesh_identical=bool(np.array_equal(mesh.vertices, mesh1.vertices)
+                                and np.array_equal(mesh.faces, mesh1.faces)),
+            vertices=len(mesh.vertices), scores=score,
+            scores_one_card=score1, launches=counts)
+        want = dict(NO_LAUNCHES, conv3x3x3=5 * 2,
+                    fused_stack_head=n * 3)
+        if counts != want:
+            fail(f'--mesh_shape {list(s)}: a batch of 2 and a test '
+                 f'launched {counts}, expected {want}')
+        if r['batch_max_abs_err'] > 5e-4 + 2e-2 * float(np.abs(ref).max()) \
+                or not r['vertices'] or not score:
+            fail(f'--mesh_shape {list(s)}: predict_grid_batch or test '
+                 'disagrees with one card\'s')
+        del ex
+    print('cards batch and test', json.dumps(other), flush=True)
+    out['batch_and_test'] = other
+    return out
+
+
+def cards_sweep_phase(devs, root, ckpt, stencil3d, fused_fc0):
+    """``test_all`` over the 8 synthetic test shapes (default head, band
+    fetch, ``--eval_pred``) from ``ckpt`` on one card, then under
+    ``--mesh_shape N`` and ``--mesh_shape 1 N``: launch counts (K2 5 and
+    K1 R / slab a shape) and every row against one card's within the
+    sweep tolerance (rtol 7e-2, atol 2e-2)."""
+    from list_tpu_torch.config import default_config
+    n = len(devs)
+    runs = {}
+    for label, kw in (('one card', {}), (f'--mesh_shape {n}',
+                                         dict(mesh_shape=[n])),
+                      (f'--mesh_shape 1 {n}', dict(mesh_shape=[1, n]))):
+        name = 'sweep_' + label.replace(' ', '_').replace('-', '')
+        cfg = default_config(**_sweep_flags(root, name), **kw)
+        os.makedirs(cfg.checkpoint_dir)
+        shutil.copy(ckpt, os.path.join(cfg.checkpoint_dir,
+                                       cfg.test_checkpoint))
+        rec = sweep_run(cfg, label, stencil3d, fused_fc0)
+        k1 = 1 if not kw else n  # slab 128 on one card, 128 / n split
+        want = dict(NO_LAUNCHES, conv3x3x3=5 * SWEEP_SHAPES,
+                    fused_stack_head=k1 * SWEEP_SHAPES)
+        if rec['launches'] != want:
+            fail(f'sweep {label}: launches {rec["launches"]}, expected '
+                 f'{want}')
+        runs[label] = rec
+    header, want = _csv_scores(os.path.join(HERE, runs['one card']['csv']))
+    for label, rec in runs.items():
+        h, got = _csv_scores(os.path.join(HERE, rec['csv']))
+        worst = max(float(np.max(np.abs(got[k] - v)
+                                 / (2e-2 + 7e-2 * np.abs(v))))
+                    for k, v in want.items())
+        rec['worst_err_over_tol'] = worst
+        rec['identical_rows'] = h == header and all(
+            np.array_equal(got[k], v) for k, v in want.items())
+        if h != header or sorted(got) != sorted(want) or worst > 1:
+            fail(f'sweep {label}: rows are not the one-card sweep\'s')
+    print('cards sweeps', json.dumps({k: dict(
+        wall_s=r['wall_s'], device_phase_s=r['device_phase_s'],
+        fresh_meshes_per_s=r['fresh_meshes_per_s'],
+        later_decode_s=r['later_decode_s'],
+        worst_err_over_tol=r['worst_err_over_tol'],
+        identical_rows=r['identical_rows']) for k, r in runs.items()}),
+        flush=True)
+    return runs
+
+
+def _cards_train_flags(args, tree, name, model, per_card):
+    """train_torch.py's flags of one NCCL job on the synthetic ShapeNet
+    tree: the global batch of ``per_card`` a card, the reference stage-2
+    recipe (128^3, 32,768 queries, remat, --remat_save_samples 1, 4 query
+    chunks) or stage 1's, one epoch, no periodic checkpoint or testlist
+    eval."""
+    exp = name.replace(' ', '_').replace(',', '')
+    flags = ['--model', model, '--image_dir', f'{tree}/images/',
+             '--h5_dir', f'{tree}/sampled_points/', '--mesh_dir',
+             f'{tree}/mesh/', '--split_dir', f'{tree}/split',
+             '--testlist_file', '', '--catlist', CARDS_CAT,
+             '--viewnum', '1', '--img_res', '224', '--train_batch_size',
+             str(per_card * args.cards), '--epochs', '1',
+             '--save_every_epoch', '100', '--test_every_epoch', '100',
+             '--output_dir', os.path.join(args.dist_dir, 'train') + '/',
+             '-e', exp, '--seed', str(args.seed), '--multihost', '1']
+    if model.endswith('LIST'):
+        return flags + ['--dataset', 'datasets.Datasets.IM2SDF',
+                        '--vox_res', '128', '--sample_point_density',
+                        '32768', '--sdf_scale', '10', '--remat', '1',
+                        '--remat_save_samples', '1', '--train_query_chunks',
+                        '4']
+    return flags + ['--dataset', 'datasets.Datasets.IM2PointFarthest']
+
+
+def card_rank(args, stencil3d, fused_fc0):
+    """One NCCL rank of the multi-card mode, on cuda:{rank} (run by
+    ``cards_ranks_phase`` as ``chip_smoke.py --cards N --card_rank R``):
+    ``train_torch.main`` with ``--multihost 1`` for each of CARDS_JOBS
+    (every step's launches, step_s and peak memory; the state digests
+    after it), the small step at a global batch of 4 (rank 0 keeps its
+    result), and ``infer_torch.main`` with ``--multihost 1`` over this
+    rank's strided share of the 8 synthetic test shapes; writes its record
+    to ``<dist_dir>/rank<R>.json``."""
+    import importlib
+    from list_tpu_torch.parallel import multihost
+    from list_tpu_torch.train.executors import (CoarseNetExecutor,
+                                                LISTExecutor)
+    os.environ.update(COORDINATOR_ADDRESS=f'127.0.0.1:{args.dist_port}',
+                      NUM_PROCESSES=str(args.cards),
+                      PROCESS_ID=str(args.card_rank))
+    train_torch = importlib.import_module('train_torch')
+    infer_torch = importlib.import_module('infer_torch')
+    rank = args.card_rank
+    rec = dict(rank=rank, jobs={})
+    for name, model, per_card in CARDS_JOBS:
+        flags = _cards_train_flags(args, args.tree, name, model, per_card)
+        Executor = LISTExecutor if model.endswith('LIST') \
+            else CoarseNetExecutor
+        seen = []
+        run = driver_run(None, f'rank {rank}: {name}', Executor, stencil3d,
+                         fused_fc0, run=lambda: train_torch.main(flags),
+                         seen=seen)
+        want = STEP_LAUNCHES if Executor is LISTExecutor else NO_LAUNCHES
+        steps = [e for e in run['events'] if e['kind'] == 'train']
+        if len(steps) < 3 or any(e['launches'] != want for e in steps):
+            fail(f'rank {rank} {name}: {len(steps)} steps, launches '
+                 f'{[e["launches"] for e in steps]}, expected {want} a step')
+        if not all(np.isfinite(v) for e in steps
+                   for v in e['losses'].values()):
+            fail(f'rank {rank} {name}: a loss is not finite')
+        ex = seen[-1]
+        rec['jobs'][name] = dict(
+            global_batch=per_card * args.cards, device=str(ex.device),
+            process_info=multihost.process_info(),
+            step_s=[e['step_s'] for e in steps],
+            peak_device_gb=[e['peak_device_gb'] for e in steps],
+            launches_per_step=steps[0]['launches'], wall_s=run['wall_s'],
+            digests=_digests(ex))
+        if ex.device != torch.device('cuda', rank) \
+                or torch.cuda.current_device() != rank:
+            fail(f'rank {rank} {name}: ran on {ex.device}')
+        del ex, seen, run
+        torch.cuda.empty_cache()
+
+    gcfg, model, gbatch = _small_input(args.seed)
+    ex = LISTExecutor(gcfg, model)
+    small = _step_run(ex, ex.train(gbatch)[1])
+    rec['small_digests'] = _digests(ex)
+    if rank == 0:
+        torch.save(small, os.path.join(args.dist_dir, 'small_rank0.pt'))
+    del ex, model, small
+    torch.cuda.empty_cache()
+
+    flags = ['--model', 'network.models.LIST', '--dataset',
+             'datasets.Datasets.Synthetic', '--vox_res', '128',
+             '--sdf_scale', '10', '--eval_pred', '-e', 'sweep',
+             '--output_dir', os.path.join(args.dist_dir, 'sweep_ranks') + '/',
+             '--multihost', '1']
+    shapes = SWEEP_SHAPES // args.cards
+    rec['sweep'] = sweep_run(None, f'rank {rank} of {args.cards}', stencil3d,
+                             fused_fc0, shapes=shapes,
+                             run=lambda: infer_torch.main(flags))
+    want = dict(NO_LAUNCHES, conv3x3x3=5 * shapes, fused_stack_head=shapes)
+    if rec['sweep']['launches'] != want:
+        fail(f'rank {rank} sweep: launches {rec["sweep"]["launches"]}, '
+             f'expected {want}')
+    multihost.sync_global_devices('done')
+    multihost.shutdown()
+    with open(os.path.join(args.dist_dir, f'rank{rank}.json'), 'w') as f:
+        json.dump(rec, f, default=float)
+
+
+def cards_ranks_phase(args, lines, ckpt, tree_proc, reference_csv):
+    """N NCCL ranks, rank r on cuda:r, each running ``card_rank``; then
+    their states per job bit-identical, the small step held to one process
+    (``card_gradient_check``, references on the CPU after the ranks), the
+    sharded sweep's ``_p{rank}.csv`` rows against the one-card sweep's, and
+    the offline evaluation of the ranks' meshes."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset
+    from list_tpu_torch.train import LISTExecutor
+    root = args.dist_dir
+    n = args.cards
+    cfg = default_config(**_sweep_flags(root, 'sweep_ranks'))
+    os.makedirs(cfg.checkpoint_dir)
+    shutil.copy(ckpt, os.path.join(cfg.checkpoint_dir, cfg.test_checkpoint))
+    t0 = time.perf_counter()
+    if tree_proc.wait() != 0:
+        fail('the synthetic ShapeNet tree was not written')
+    tree_wait_s = time.perf_counter() - t0
+
+    port = _free_port()
+    logs = [os.path.join(root, f'rank{r}.log') for r in range(n)]
+    procs = []
+    t0 = time.perf_counter()
+    for r, path in enumerate(logs):
+        with open(path, 'w') as log:
+            procs.append(_spawn(args, [
+                '--cards', str(n), '--card_rank', str(r), '--dist_port',
+                str(port), '--tree', os.path.join(root, 'tree')], log))
+    _join(procs, logs, 'cards', timeout=CARDS_RANK_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(root, f'rank{r}.json')) as f:
+            ranks.append(json.load(f))
+    for rec in ranks:
+        print('cards rank', json.dumps(dict(
+            card=lines[rec['rank']], rank=rec['rank'],
+            jobs={k: {kk: v[kk] for kk in ('global_batch', 'device',
+                                           'step_s', 'peak_device_gb',
+                                           'launches_per_step', 'wall_s')}
+                  for k, v in rec['jobs'].items()},
+            sweep=dict(wall_s=rec['sweep']['wall_s'],
+                       device_phase_s=rec['sweep']['device_phase_s'],
+                       fresh_meshes_per_s=rec['sweep'][
+                           'fresh_meshes_per_s'],
+                       peak_device_gb=rec['sweep']['peak_device_gb']))),
+            flush=True)
+    for name, *_ in CARDS_JOBS:
+        if any(r['jobs'][name]['digests'] != ranks[0]['jobs'][name]['digests']
+               for r in ranks):
+            fail(f'{name}: the ranks\' parameters, BatchNorm statistics or '
+                 'Adam moments differ')
+    if any(r['small_digests'] != ranks[0]['small_digests'] for r in ranks):
+        fail('the small step: the ranks\' states differ')
+
+    gcfg, gmodel, gbatch = _small_input(args.seed)
+    t0 = time.perf_counter()
+    refs = _reference_runs(gcfg, gmodel, gbatch, LISTExecutor)
+    refs_s = time.perf_counter() - t0
+    check = card_gradient_check(
+        gcfg, gmodel, gbatch, LISTExecutor, refs=refs,
+        card=torch.load(os.path.join(root, 'small_rank0.pt')))
+    if not check['ok']:
+        fail(f'the {n}-rank small step disagrees with the 1-process step: '
+             f'{json.dumps(check["bad"])}')
+
+    header, want = _csv_scores(os.path.join(HERE, reference_csv))
+    got = {}
+    for rec in ranks:
+        h, rows = _csv_scores(os.path.join(HERE, rec['sweep']['csv']))
+        strided = sorted(want)[rec['rank']::n]
+        name = f'_p{rec["rank"]}.csv' if n > 1 else f'{SWEEP_CAT}.csv'
+        if h != header or sorted(rows) != strided or not os.path.basename(
+                rec['sweep']['csv']).endswith(name):
+            fail(f'rank {rec["rank"]}: CSV {rec["sweep"]["csv"]} with rows '
+                 f'{sorted(rows)}, expected {strided}')
+        got.update(rows)
+    worst = max(float(np.max(np.abs(got[k] - v) / (2e-2 + 7e-2 * np.abs(v))))
+                for k, v in want.items() if k in got)
+    print('cards sharded sweep vs one card', json.dumps(dict(
+        shapes=sorted(got), worst_err_over_tol=worst)), flush=True)
+    if sorted(got) != sorted(want) or worst > 1:
+        fail('the sharded sweep\'s rows are not the one-card sweep\'s')
+    mesh_dir = os.path.join(root, 'gt_mesh')
+    test = SyntheticSDFDataset(cfg, 'test')
+    for i in range(SWEEP_SHAPES):
+        d = os.path.join(mesh_dir, 'synthetic', str(i))
+        os.makedirs(d)
+        test.get_testdata('synthetic', str(i), 0)['gt_mesh'].export(
+            os.path.join(d, 'isosurf_scaled.obj'))
+    offline = _offline_eval(
+        os.path.dirname(os.path.join(HERE, ranks[0]['sweep']['csv'])),
+        mesh_dir, lines[0])
+    return dict(ranks=ranks, tree_wait_s=tree_wait_s, ranks_s=ranks_s,
+                card_gradient_check=check, cpu_references_s=refs_s,
+                sharded_sweep_worst=worst, offline=offline)
+
+
+def cards_last_card_phase(args, dev, line, model, img, gt):
+    """One process on ``dev`` (the last card) while cuda:0 stays current:
+    one warm and one timed full-width stage-2 step (batch 8 x 32,768,
+    remat, --remat_save_samples 1, 4 query chunks) and one 128^3 mesh
+    through ``LISTExecutor.test`` with the sweep's weights; launches per
+    step and per mesh asserted."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset, collate
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import LISTExecutor
+    tcfg = default_config(vox_res=128, train_batch_size=8,
+                          sample_point_density=32768, sdf_scale=10.0,
+                          remat_save_samples=1)
+    ds = SyntheticSDFDataset(tcfg, 'train', n_shapes=8)
+    batch = collate([ds[i] for i in range(8)])
+    torch.manual_seed(args.seed)
+    ex = LISTExecutor(tcfg, LIST.from_config(tcfg), device=dev)
+    steps = []
+    for i in range(2):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _, losses = ex.train(batch)
+        steps.append(dict(step_s=ex.timings['step_s'],
+                          peak_device_gb=torch.cuda.max_memory_allocated(dev)
+                          / 1e9, launches=launch_counts(),
+                          losses={k: float(v) for k, v in losses.items()}))
+        _current_is_first(f'a train step on {dev}')
+        if steps[-1]['launches'] != STEP_LAUNCHES or not all(
+                np.isfinite(v) for v in steps[-1]['losses'].values()):
+            fail(f'a train step on {dev}: {steps[-1]}')
+    del ex
+    torch.cuda.empty_cache()
+    mex = LISTExecutor(default_config(vox_res=128, sdf_scale=10.0),
+                       copy.deepcopy(model), device=dev)
+    reset_launch_counts()
+    np.random.seed(args.seed)
+    (mesh, values), score = mex.test({'rgb_image': img, 'gt_mesh': gt},
+                                     eval_pred=True)
+    counts = launch_counts()
+    _current_is_first(f'a mesh on {dev}')
+    rec = dict(card=line, device=str(dev), train_steps=steps,
+               mesh=dict(vertices=len(mesh.vertices), **mex.timings,
+                         metrics=score, launches=counts))
+    print('cards last card', json.dumps(rec), flush=True)
+    if counts != TEST_LAUNCHES or not len(mesh.vertices) or not score \
+            or not np.isfinite(values).all():
+        fail(f'the mesh on {dev}: launches {counts}, '
+             f'{len(mesh.vertices)} vertices, scores {score}')
+    return rec
+
+
+def cards_main(args, kind, build, native, stencil3d, fused_fc0):
+    """``--cards N``: the port across N cards of one machine (module
+    docstring, "The multi-card mode")."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.data import SyntheticSDFDataset
+    from list_tpu_torch.device import cards
+    from list_tpu_torch.ops.cuda import KERNEL_SOURCES
+    from list_tpu_torch.utils.meshio import make_icosphere
+    n = args.cards
+    t_start = time.perf_counter()
+    if torch.cuda.device_count() < n:
+        fail(f'--cards {n} needs {n} cards, this machine has '
+             f'{torch.cuda.device_count()}')
+    if SWEEP_SHAPES % n or 4 % n:
+        fail(f'--cards {n}: the sweep\'s {SWEEP_SHAPES} shapes and the small '
+             'step\'s global batch of 4 must divide over the cards')
+    devs = [torch.device('cuda', i) for i in range(n)]
+    torch.cuda.set_device(0)
+    lines = cards()
+    for line in lines:
+        print(line, flush=True)
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+          f'devices {torch.cuda.device_count()}, --cards {n}', flush=True)
+    args.dist_dir = os.path.join(HERE, 'build', 'chip_smoke_cards')
+    shutil.rmtree(args.dist_dir, ignore_errors=True)
+    os.makedirs(args.dist_dir)
+    tree_log = open(os.path.join(args.dist_dir, 'tree.log'), 'w')
+    tree_proc = subprocess.Popen(
+        [sys.executable, '-c', TREE_SCRIPT,
+         os.path.join(args.dist_dir, 'tree'), str(CARDS_TREE_SHAPES * n),
+         CARDS_CAT], cwd=HERE, stdout=tree_log, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        nat = threading.Thread(target=native.have_native)
+        nat.start()
+        try:
+            build.build_all(KERNEL_SOURCES)
+        except RuntimeError as e:
+            fail(str(e))
+        nat.join()
+        if not native.have_native():
+            fail('the native mesh library did not build')
+        print(f'build_s {time.perf_counter() - t0:.1f}', flush=True)
+        t0 = time.perf_counter()
+        kernels = cards_kernel_phase(devs[1:] or devs, lines, stencil3d,
+                                     fused_fc0)
+        kernels_s = time.perf_counter() - t0
+        print(f'cards kernel phase {kernels_s:.1f} s', flush=True)
+
+        t0 = time.perf_counter()
+        base = _sweep_flags(args.dist_dir, 'checkpoint')
+        model, ex, _, ckpt = _sweep_checkpoint(args, base)
+        del ex
+        test = SyntheticSDFDataset(default_config(**base), 'test')
+        imgs = [test.get_testdata('synthetic', str(i), 0)['rgb_image']
+                for i in range(2)]
+        gt = make_icosphere(radius=0.3)
+        decode = cards_decode_phase(args, devs, lines, model, imgs, gt)
+        sweeps = cards_sweep_phase(devs, args.dist_dir, ckpt, stencil3d,
+                                   fused_fc0)
+        decode_s = time.perf_counter() - t0
+        print(f'cards decode and sweep phases {decode_s:.1f} s', flush=True)
+        torch.cuda.empty_cache()
+
+        ranks = cards_ranks_phase(args, lines, ckpt, tree_proc,
+                                  sweeps['one card']['csv'])
+        last = cards_last_card_phase(args, devs[-1], lines[-1], model,
+                                     imgs[0], gt)
+    finally:
+        if tree_proc.poll() is None:
+            tree_proc.kill()
+        tree_proc.wait()
+        tree_log.close()
+    summary = dict(
+        cards=lines[:n], kernels_on_cards={
+            r['device']: dict(ms=r['ms'], max_abs_err=r['max_abs_err'],
+                              launches=r['launches']) for r in kernels},
+        decode={R: dict(one_card_s=d['one_card'], split_s=d['split'],
+                        split_one_thread_s=d['split_one_thread'],
+                        bitwise=d['bitwise'])
+                for R, d in decode['decode'].items()},
+        step_s={name: {r['rank']: r['jobs'][name]['step_s']
+                       for r in ranks['ranks']} for name, *_ in CARDS_JOBS},
+        last_card=dict(step_s=[s['step_s'] for s in last['train_steps']]),
+        phase_s=dict(kernels=kernels_s, decode_and_sweeps=decode_s,
+                     ranks=ranks['ranks_s']),
+        total_s=time.perf_counter() - t_start)
+    if args.report:
+        os.makedirs(os.path.dirname(os.path.abspath(args.report)),
+                    exist_ok=True)
+        with open(args.report, 'w') as f:
+            json.dump(dict(summary, kind=kind, kernels=kernels, decode=decode,
+                           sweeps=sweeps, ranks=ranks, last_card=last), f,
+                      indent=1, default=float)
+    print(f'total_s {summary["total_s"]:.1f}', flush=True)
+    print(json.dumps({'cards': summary}, default=float), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind, 'count': n}}), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument('--seed', type=int, default=0)
@@ -1841,6 +2611,13 @@ def main():
                     help=argparse.SUPPRESS)
     ap.add_argument('--nccl_rank', action='store_true',
                     help=argparse.SUPPRESS)
+    ap.add_argument('--cards', type=int, default=0,
+                    help='the multi-card mode over cuda:0 .. N-1 (N cards '
+                    'needed)')
+    # the multi-card mode's own processes (cards_ranks_phase starts them)
+    ap.add_argument('--card_rank', type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument('--tree', default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1863,6 +2640,11 @@ def main():
         return dist_rank(args, stencil3d, fused_fc0)
     if args.nccl_rank:
         return nccl_rank(args)
+    if args.card_rank is not None:
+        return card_rank(args, stencil3d, fused_fc0)
+    if args.cards:
+        return cards_main(args, torch.cuda.get_device_name(0), build, native,
+                          stencil3d, fused_fc0)
 
     t_start = time.perf_counter()
     dev = torch.device('cuda')
@@ -1901,12 +2683,8 @@ def main():
         mlp = _total([dict(mlp_row, calls=2)],
                      'mesh (2 launches of n = 1,048,576)')
         torch.cuda.empty_cache()
-        # a train step: forward 1->1 x3, 1->16, 16->16, twice (remat), and
-        # dx 1->1 x2, 16->1, 16->16
-        conv_train = conv_phase(dev, stencil3d, 8, ((1, 1, 8), (1, 16, 2),
-                                                    (16, 16, 3), (16, 1, 1)),
-                                'train step (14 launches, batch 8, 128^3)',
-                                plain_reps=2)
+        conv_train = conv_phase(dev, stencil3d, 8, TRAIN_CONV_SHAPES,
+                                TRAIN_CONV_UNIT, plain_reps=2)
         dk = dk_phase(dev, stencil3d)
     grads_on_card = grad_fn_phase(dev, stencil3d)
     torch.cuda.empty_cache()

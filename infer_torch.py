@@ -10,7 +10,8 @@ package ``.ckpt`` or the port's torch-format file; else
 ``best_model_train.ckpt``), sweeps the test split on the card, and writes
 ``<output_dir><exp_name>/test_<epoch>/<cat>/<shape>/NN_pred.obj`` and, with
 ``--eval_pred``, the scores CSV.  ``--device cpu`` runs the plain PyTorch
-path on the CPU.
+path on the CPU.  ``main(argv)`` returns the CSV's path (None when nothing
+was evaluated).
 """
 
 import argparse
@@ -26,7 +27,7 @@ def main(argv=None):
                      help="'cuda' (the default) or 'cpu'")
     known, rest = pre.parse_known_args(sys.argv[1:] if argv is None
                                        else argv)
-    test_all(get_args(rest), device=known.device)
+    return test_all(get_args(rest), device=known.device)
 
 
 if __name__ == '__main__':

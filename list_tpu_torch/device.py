@@ -11,9 +11,9 @@ precision where it matters (its align-corners resize matrices), and cuDNN
 convolutions default to TF32 on Hopper.
 
 The card's data-sheet rates (``PEAK_RATES``, ``peak_rates``), its
-``nvidia-smi`` line (``card``) and the CUDA-event median of a call
-(``time_ms``) serve ``chip_smoke.py``, ``bench_torch.py`` and the kernels'
-bounds.
+``nvidia-smi`` line (``card``; every card's: ``cards``) and the CUDA-event
+median of a call on a given card (``time_ms``) serve ``chip_smoke.py``,
+``bench_torch.py`` and the kernels' bounds.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from __future__ import annotations
 import os
 import statistics
 import subprocess
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -47,29 +47,37 @@ def peak_rates(name: str) -> Dict[str, float]:
                          f'(known: {sorted(PEAK_RATES)})') from None
 
 
-def card() -> str:
-    """The first card's ``nvidia-smi --query-gpu=name,power.limit`` line."""
+def cards() -> List[str]:
+    """Every card's ``nvidia-smi --query-gpu=name,power.limit`` line."""
     r = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                         '--format=csv,noheader'], capture_output=True,
                        text=True, timeout=60)
     if r.returncode != 0:
         raise RuntimeError(f'nvidia-smi: {r.stderr.strip()}')
-    return r.stdout.strip().splitlines()[0]
+    return r.stdout.strip().splitlines()
 
 
-def time_ms(fn: Callable[[], object], reps: int, warm: int = 2) -> float:
+def card() -> str:
+    """The first card's ``nvidia-smi --query-gpu=name,power.limit`` line."""
+    return cards()[0]
+
+
+def time_ms(fn: Callable[[], object], reps: int, warm: int = 2,
+            device: Optional[Union[str, torch.device]] = None) -> float:
     """Median CUDA-event time of one call of ``fn``, in ms, after ``warm``
-    calls."""
+    calls; the events go on ``device``'s current stream (default: the
+    current device's), the card ``fn`` works on."""
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
+    stream = torch.cuda.current_stream(device)
     ts = []
     for _ in range(reps):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
-        s.record()
+        s.record(stream)
         fn()
-        e.record()
+        e.record(stream)
         e.synchronize()
         ts.append(s.elapsed_time(e))
     return float(statistics.median(ts))

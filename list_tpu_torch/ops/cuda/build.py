@@ -6,6 +6,12 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 included, so a build takes seconds.  Nothing is built or loaded at import:
 the first launch builds, and ``build_all`` compiles every source in
 parallel (one ``nvcc`` process each).
+
+``launch`` calls a launcher with the operands' card as the current device:
+``cudaFuncSetAttribute`` and ``<<<..., stream>>>`` act on the calling
+thread's current device, and a launch into another card's stream is not
+refused there: its kernel faults on an illegal address, reported by a
+later call.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-Xptxas', '-v']
 
 _lock = threading.Lock()
+# held by the wrappers around their launch counters: the split decode
+# launches K1 from one host thread per card
+count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -99,3 +108,13 @@ def stream_handle(device) -> int:
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f'{what}: kernel launch failed (code {rc})')
+
+
+def launch(device: torch.device, what: str, fn, *args) -> None:
+    """``fn(*args, stream)``, a ctypes launcher, on ``device``'s current
+    stream with ``device`` (the operands' card) current for the call; the
+    caller's current device comes back afterwards.  A non-zero return
+    raises."""
+    with torch.cuda.device(device):
+        rc = fn(*args, stream_handle(device))
+    check(rc, what)

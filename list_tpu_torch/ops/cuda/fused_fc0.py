@@ -193,15 +193,15 @@ def fused_stack_head(parts: Sequence[torch.Tensor],
     fn.restype = ctypes.c_int
     ptrs = (ctypes.c_void_p * len(parts))(*[p.data_ptr() for p in parts])
     ks = (ctypes.c_int * len(parts))(*Ks)
-    rc = fn(ptrs, ks, len(parts), n,
-            coarse.data_ptr() if coarse is not None else None, mode,
-            percep.data_ptr(), qxyz.data_ptr(), qxyz.shape[1],
-            w1cat.data_ptr(), w1cat.shape[0], wxyz.data_ptr(),
-            b1v.data_ptr(), w2m.data_ptr(), b2v.data_ptr(), w3m.data_ptr(),
-            b3v.data_ptr(), w4v.data_ptr(), b4v.data_ptr(), out.data_ptr(),
-            build.stream_handle(dev))
-    build.check(rc, 'fused_stack_head')
-    launches += 1
+    build.launch(dev, 'fused_stack_head', fn, ptrs, ks, len(parts), n,
+                 coarse.data_ptr() if coarse is not None else None, mode,
+                 percep.data_ptr(), qxyz.data_ptr(), qxyz.shape[1],
+                 w1cat.data_ptr(), w1cat.shape[0], wxyz.data_ptr(),
+                 b1v.data_ptr(), w2m.data_ptr(), b2v.data_ptr(),
+                 w3m.data_ptr(), b3v.data_ptr(), w4v.data_ptr(),
+                 b4v.data_ptr(), out.data_ptr())
+    with build.count_lock:
+        launches += 1
     return out
 
 
@@ -239,14 +239,15 @@ def fused_fc0_mlp(stacks: Sequence[torch.Tensor], percep: torch.Tensor,
     ptrs = (ctypes.c_void_p * len(stacks))(*[t.data_ptr() for t in stacks])
     cs = (ctypes.c_int * len(stacks))(*chs)
     staging = (ctypes.c_int * len(stacks))()
-    rc = fn(ptrs, cs, len(stacks), n, percep.data_ptr(), qxyz.data_ptr(),
-            qxyz.shape[1], w1cat.data_ptr(), w1cat.shape[0], wxyz.data_ptr(),
-            b1v.data_ptr(), w2m.data_ptr(), b2v.data_ptr(), w3m.data_ptr(),
-            b3v.data_ptr(), w4v.data_ptr(), b4v.data_ptr(), out.data_ptr(),
-            staging, build.stream_handle(dev))
-    build.check(rc, 'fused_fc0_mlp')
-    mlp_launches += 1
-    mlp_staging = tuple(STAGING_PATHS[p] for p in staging)
+    build.launch(dev, 'fused_fc0_mlp', fn, ptrs, cs, len(stacks), n,
+                 percep.data_ptr(), qxyz.data_ptr(), qxyz.shape[1],
+                 w1cat.data_ptr(), w1cat.shape[0], wxyz.data_ptr(),
+                 b1v.data_ptr(), w2m.data_ptr(), b2v.data_ptr(),
+                 w3m.data_ptr(), b3v.data_ptr(), w4v.data_ptr(),
+                 b4v.data_ptr(), out.data_ptr(), staging)
+    with build.count_lock:
+        mlp_launches += 1
+        mlp_staging = tuple(STAGING_PATHS[p] for p in staging)
     return out
 
 

@@ -109,11 +109,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dx: bool = False
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, Ci, Co, D, H, W,
-            build.stream_handle(x.device))
-    build.check(rc, 'conv3x3x3')
-    launches += 1
-    dx_launches += int(dx)
+    build.launch(x.device, 'conv3x3x3', fn, x.data_ptr(), w.data_ptr(),
+                 y.data_ptr(), B, Ci, Co, D, H, W)
+    with build.count_lock:
+        launches += 1
+        dx_launches += int(dx)
     return y
 
 
@@ -155,10 +155,10 @@ def conv3x3x3_dk(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(x.data_ptr(), g.data_ptr(), dk.data_ptr(), partial.data_ptr(),
-            nblk, B, Ci, Co, D, H, W, build.stream_handle(x.device))
-    build.check(rc, 'conv3x3x3_dk')
-    dk_launches += 1
+    build.launch(x.device, 'conv3x3x3_dk', fn, x.data_ptr(), g.data_ptr(),
+                 dk.data_ptr(), partial.data_ptr(), nblk, B, Ci, Co, D, H, W)
+    with build.count_lock:
+        dk_launches += 1
     return dk
 
 

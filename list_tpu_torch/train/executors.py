@@ -41,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -351,19 +352,35 @@ class LISTExecutor(BaseExecutor):
         ``decode_devices``: device i of N decodes x rows
         [i R / N, (i + 1) R / N) from its copy of the features and the
         decoder, and the ranges are concatenated on this executor's
-        device."""
+        device.  The copies are queued first, then over several cards
+        each card's decode is dispatched from a host thread of its own,
+        with that card current: a decode waits on its card's stream
+        wherever it uploads a host array (PyTorch synchronizes a pageable
+        copy), so one thread would run the cards one after another."""
         devs = self.decode_devices
         rows = self.vox_res // len(devs)
-        parts = []
-        for i, d in enumerate(devs):
-            dec = self.model.sdf_decoder if d == self.device \
-                else copy.deepcopy(self.model.sdf_decoder).to(d)
-            parts.append(dense_grid_sdf(
-                dec, [f.to(d) for f in enc['vox_feat']],
-                [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d),
-                self.vox_res, slab=slab, compute_dtype=self.compute_dtype,
-                bb_min=self.bb_min, bb_max=self.bb_max,
-                use_pallas=use_pallas, x_range=(i * rows, (i + 1) * rows)))
+        inputs = [(self.model.sdf_decoder if d == self.device
+                   else copy.deepcopy(self.model.sdf_decoder).to(d),
+                   [f.to(d) for f in enc['vox_feat']],
+                   [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d))
+                  for d in devs]
+        inference = torch.is_inference_mode_enabled()
+
+        def decode(i):
+            guard = (torch.cuda.device(devs[i]) if devs[i].type == 'cuda'
+                     else contextlib.nullcontext())
+            with guard, torch.inference_mode(inference):
+                return dense_grid_sdf(
+                    *inputs[i], self.vox_res, slab=slab,
+                    compute_dtype=self.compute_dtype, bb_min=self.bb_min,
+                    bb_max=self.bb_max, use_pallas=use_pallas,
+                    x_range=(i * rows, (i + 1) * rows))
+
+        if len(set(devs)) > 1 and devs[0].type == 'cuda':
+            with ThreadPoolExecutor(len(devs)) as pool:
+                parts = list(pool.map(decode, range(len(devs))))
+        else:
+            parts = [decode(i) for i in range(len(devs))]
         return torch.cat([p.to(self.device) for p in parts])
 
     def _finish(self, grid, fetch_dtype, fetch_mode):

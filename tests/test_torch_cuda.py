@@ -276,6 +276,89 @@ def test_fps_on_the_card_is_the_cpus(cuda, n, k):
                                rtol=0, atol=0)
 
 
+# ---- several cards ---------------------------------------------------------
+
+def _need_cards(n):
+    if torch.cuda.device_count() < n:
+        pytest.skip(f'needs {n} cards, torch sees '
+                    f'{torch.cuda.device_count()}')
+
+
+def test_kernels_launch_on_their_operands_card(cuda):
+    """Each kernel on cuda:1 while cuda:0 is the current device: K2's
+    forward, its dx and K3 through Conv3x3x3Fn's backward, K3 alone, K1
+    and K4 each launch on cuda:1 (counted once a launch), agree with their
+    plain versions there (the conv's tolerances as above, the heads' 1e-2
+    + 1e-2 |plain|), and leave cuda:0 current."""
+    _need_cards(2)
+    dev = torch.device('cuda', 1)
+    torch.cuda.set_device(0)
+    g_ = torch.Generator(device='cpu').manual_seed(21)
+    x0 = torch.randn(2, 16, 4, 8, 33, generator=g_)
+    w0 = torch.randn(16, 16, 3, 3, 3, generator=g_) * 0.2
+    r = torch.randn(2, 16, 4, 8, 33, generator=g_).to(dev)
+    x, w = x0.to(dev).requires_grad_(), w0.to(dev).requires_grad_()
+    before = (stencil3d.launches, stencil3d.dx_launches,
+              stencil3d.dk_launches)
+    y = stencil3d.conv3x3x3(x, w)
+    (y * r).sum().backward()
+    dk = stencil3d.conv3x3x3_dk(x.detach(), r)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0
+    assert (stencil3d.launches, stencil3d.dx_launches,
+            stencil3d.dk_launches) == (before[0] + 2, before[1] + 1,
+                                       before[2] + 2)
+    xp, wp = x0.to(dev).requires_grad_(), w0.to(dev).requires_grad_()
+    yp = stencil3d.conv3x3x3_plain(xp, wp)
+    (yp * r).sum().backward()
+    assert y.device == x.grad.device == w.grad.device == dk.device == dev
+    torch.testing.assert_close(y, yp, atol=1e-4, rtol=1e-4)
+    for got, ref in ((x.grad, xp.grad), (w.grad, wp.grad), (dk, wp.grad)):
+        assert float((got - ref).abs().max()) <= \
+            1e-4 * float(ref.abs().max())
+    for kernel, plain, args, count in (
+            (fused_fc0.fused_stack_head, fused_fc0.fused_stack_head_plain,
+             _head_args(1000, 'bf16', dev), 'launches'),
+            (fused_fc0.fused_fc0_mlp, fused_fc0.fused_fc0_mlp_plain,
+             _mlp_args(1000, K4_CS, dev), 'mlp_launches')):
+        before = getattr(fused_fc0, count)
+        got = kernel(*args)
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+        assert getattr(fused_fc0, count) == before + 1
+        assert got.device == dev
+        torch.testing.assert_close(got, plain(*args), atol=1e-2, rtol=1e-2)
+
+
+def test_split_decode_over_the_cards_is_the_one_card_grid(cuda):
+    """predict_grid under --mesh_shape N (every card) on the full-width
+    LIST at 128^3 gives the one-card grid bit for bit (K1 computes each
+    query on its own), with one K1 launch a card, and cuda:0 stays
+    current."""
+    _need_cards(2)
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from list_tpu_torch.train import LISTExecutor
+    n = next(k for k in (8, 4, 2) if torch.cuda.device_count() >= k)
+    torch.cuda.set_device(0)
+    torch.manual_seed(0)
+    model = LIST.from_config(default_config(vox_res=128))
+    img = np.random.RandomState(0).rand(1, 224, 224, 3).astype(np.float32)
+    kw = dict(fetch_dtype='float32', fetch_mode='grid')
+    one = LISTExecutor(default_config(vox_res=128, sdf_scale=10.0), model)
+    split = LISTExecutor(default_config(vox_res=128, sdf_scale=10.0,
+                                        mesh_shape=[n]), model)
+    assert split.decode_devices == [torch.device('cuda', i)
+                                    for i in range(n)]
+    ref = one.predict_grid(img, **kw)
+    reset_launch_counts()
+    got = split.predict_grid(img, **kw)
+    assert launch_counts()['fused_stack_head'] == n
+    assert torch.cuda.current_device() == 0
+    assert np.isfinite(got).all() and np.array_equal(got, ref)
+
+
 # ---- the sweep's overlapped fetch ---------------------------------------------
 
 @pytest.fixture(scope='module')

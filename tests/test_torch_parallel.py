@@ -18,6 +18,7 @@ import subprocess
 import sys
 import time
 import traceback
+import types
 
 import flax.linen as fnn
 import jax
@@ -757,12 +758,14 @@ def test_sweep_two_ranks_is_the_one_process_sweep(ranks, setup,
 
 # ---- the split dense decode ---------------------------------------------------
 
-@pytest.mark.parametrize('R', [16, 32])
-def test_dense_grid_over_two_row_ranges_is_the_grid(R):
-    """dense_grid_sdf over x rows [0, R/2) and [R/2, R), concatenated,
-    equals the whole grid bit for bit, for every head and in f32 and bf16
-    (the coarse-projected scales run at R = 32): the per-range work is the
-    same per-slab work, and the coarse term's product keeps its rows."""
+@pytest.mark.parametrize('R,ranges', [(16, 2), (32, 2), (16, 4)],
+                         ids=['16', '32', '16-four-ranges'])
+def test_dense_grid_over_two_row_ranges_is_the_grid(R, ranges):
+    """dense_grid_sdf over x rows [0, R/2) and [R/2, R) (or four ranges
+    of R/4, a four-card split), concatenated, equals the whole grid bit for
+    bit, for every head and in f32 and bf16 (the coarse-projected scales
+    run at R = 32): the per-range work is the same per-slab work, and the
+    coarse term's product keeps its rows."""
     from list_tpu_torch.ops.dense_grid import dense_grid_sdf
     torch.manual_seed(0)
     m = LIST(**dict(TINY, vox_res=R)).eval()
@@ -776,11 +779,30 @@ def test_dense_grid_over_two_row_ranges_is_the_grid(R):
         for head in (0, 1, 2):
             kw = dict(slab=R // 4, compute_dtype=dt, use_pallas=head)
             whole = dense_grid_sdf(*args, **kw)
-            split = torch.cat([dense_grid_sdf(*args, x_range=r, **kw)
-                               for r in ((0, R // 2), (R // 2, R))])
+            rows = R // ranges
+            split = torch.cat([dense_grid_sdf(*args, x_range=(i * rows,
+                                                              (i + 1) * rows),
+                                              **kw) for i in range(ranges)])
             assert torch.equal(split, whole), (dt, head)
     with pytest.raises(ValueError, match='x_range'):
         dense_grid_sdf(*args, slab=R // 4, x_range=(1, R))
+
+
+@pytest.mark.parametrize('mesh_shape', [[4], [1, 4]])
+def test_four_way_split_is_the_jax_packages(mesh_shape):
+    """--mesh_shape 4 and --mesh_shape 1 4 give the dense decode four
+    devices (the CPU four times here; cuda:0 .. 3 on a machine with four
+    cards), and the four-way plan is list_tpu's: slab 32 at 128^3 and 8
+    at 256^3 (the CPU's head 0 on both sides)."""
+    from list_tpu.train.executors import LISTExecutor as JaxExecutor
+    tex = LISTExecutor(default_config(**dict(PREDICT_CFG,
+                                             mesh_shape=mesh_shape)),
+                       LIST(**TINY), device='cpu')
+    assert tex.decode_devices == [torch.device('cpu')] * 4
+    for R, slab in ((128, 32), (256, 8)):
+        jax_self = types.SimpleNamespace(vox_res=R, config=tex.config)
+        assert JaxExecutor._dense_plan(jax_self, 4)[:2] == (slab, 0)
+        assert tex._dense_plan(4, vox_res=R) == (slab, 0)
 
 
 def test_predict_grid_split_matches_the_jax_package(ranks):

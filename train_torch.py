@@ -11,7 +11,9 @@ counterpart of ``train.py``, with the same flags.
       --sdf_scale 10 --warm_start ...
 
 Trains on the card; ``--device cpu`` runs the plain PyTorch path on the
-CPU.  Checkpoints are the JAX package's ``.ckpt`` files, under
+CPU.  With ``--multihost 1`` one command runs per process (README, "N
+ranks on N cards"); rank 0 alone snapshots the code and writes the
+checkpoints.  Checkpoints are the JAX package's ``.ckpt`` files, under
 ``<output_dir><exp_name>/checkpoints/``.
 """
 
@@ -20,6 +22,7 @@ import os
 import sys
 
 from list_tpu_torch.config import get_args
+from list_tpu_torch.parallel import multihost
 from list_tpu_torch.train.trainer import train
 from list_tpu_torch.utils.logging import snapshot_experiment
 
@@ -31,8 +34,12 @@ def main(argv=None):
     known, rest = pre.parse_known_args(sys.argv[1:] if argv is None
                                        else argv)
     config = get_args(rest)
+    # under --multihost 1 the ranks share the experiment directory: join
+    # the group first, and rank 0 alone snapshots the code into it
+    multihost.maybe_initialize(config, device=known.device)
     os.makedirs(config.checkpoint_dir, exist_ok=True)
-    snapshot_experiment(config)
+    if multihost.process_info()[0] == 0:
+        snapshot_experiment(config)
     train(config, device=known.device)
 
 
