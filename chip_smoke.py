@@ -22,9 +22,15 @@ Run from the repository root.  Phases (any failure exits non-zero):
 4. Inference path: the full-width default LIST (vox_res 128) with seeded
    random weights serves ``--requests`` seeded 224x224 images through
    ``LISTExecutor.test(..., eval_pred=True)`` (dense 128^3 SDF -> marching
-   cubes -> metrics against a sphere).  A small input (vox_res 32) is
-   checked against the CPU plain path, under the default head and under
-   ``--use_pallas 1`` (K4).
+   cubes -> metrics against a sphere).  Then no waits: after a warm call
+   each, an encode, a 128^3 and a 256^3 dense decode and a stage-2 train
+   step (batch 8 x 32,768 queries, ``--remat_save_samples 1``) run under
+   ``torch.cuda.set_sync_debug_mode('error')`` and an upload probe: any
+   synchronizing call (the step's batch upload and closing
+   synchronization aside) or host array made a tensor fails the run (the
+   constants stay on the card, ``list_tpu_torch/ops/consts.py``).  A small
+   input (vox_res 32) is checked against the CPU plain path, under the
+   default head and under ``--use_pallas 1`` (K4).
 5. Sweep path: ``test_all`` (the test-split sweep) over the port's
    synthetic dataset (8 shapes, 224x224 renders) at the same full width
    and 128^3, from a torch-format checkpoint of seeded weights, with the
@@ -137,10 +143,12 @@ instead of the phases above, with cuda:0 the current device throughout:
    the current device must stay cuda:0.
 3. The dense decode split over cuda:0 .. N-1 (``--mesh_shape N`` and
    ``--mesh_shape 1 N``) from one 128^3 encoding, at 128^3 and 256^3,
-   against one card's: the grid bit for bit (else within atol 5e-4 /
-   rtol 2e-2), K1's launches, and the decode's host-clock seconds and
-   each card's CUDA-event seconds on one card, split (a host thread a
-   card), and split from one host thread; ``predict_grid``,
+   against one card's: the grid bit for bit, K1's launches, and the
+   decode's host-clock seconds and each card's CUDA-event seconds on one
+   card, split as the executor dispatches it (from one host thread, the
+   cards' slabs in turns), and split with a host thread a card; one more
+   split decode under the sync debug mode and the upload probe, as in the
+   no-waits phase; ``predict_grid``,
    ``predict_grid_batch`` and ``test`` under both mesh shapes; then
    ``test_all`` over the 8 synthetic test shapes on one card and under
    both mesh shapes, every row held to one card's.
@@ -519,6 +527,98 @@ def train_path(ex, batches, stencil3d, fused_fc0):
     total = launch_counts()
     print('train path launches', json.dumps(total), flush=True)
     return steps, total
+
+
+NO_WAITS_GRIDS = (128, 256)  # the checked dense decodes' R
+NO_WAITS_STEP = (8, 32768, 128)  # the checked step's batch, queries, R
+
+
+def _no_waits(name, fn, inputs=0):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode('error')`` and the
+    upload probe -> (result, host seconds to the synchronized end); fails
+    on a synchronizing call, or on more host arrays made tensors than the
+    call's ``inputs`` (a train step's batch)."""
+    from tools.torch_decode_probe import numpy_uploads, sync_sites
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with numpy_uploads() as uploads, sync_sites('error'):
+            out = fn()
+    except RuntimeError as e:
+        if 'synchroniz' not in str(e):
+            raise
+        import traceback
+        fail(f'{name} waited on the card after its warm call: '
+             f'{traceback.format_exc(limit=-4)}')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(uploads) > inputs:
+        fail(f'{name} made {len(uploads)} tensors of host arrays after its '
+             f'warm call, {inputs} of them its inputs: {uploads[:8]}')
+    return out, wall
+
+
+def sync_phase(model, img, card_line):
+    """After a warm call each, nothing in an encode, a 128^3 and a 256^3
+    dense decode (``LISTExecutor._decode``, one card) or a stage-2 train
+    step at the reference recipe (batch 8 x 32,768 queries, remat,
+    ``--remat_save_samples 1``, 4 query chunks; a random batch seeded as
+    ``bench_torch.py``'s) synchronizes with the card, apart from the step's
+    batch upload and closing synchronization, and nothing makes a tensor
+    of a host array: the constants stay on the card
+    (``list_tpu_torch/ops/consts.py``).  Each checked call runs under
+    ``torch.cuda.set_sync_debug_mode('error')`` and the upload probe; any
+    wait or upload fails the run.  One ``no waits`` line."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import LISTExecutor
+    from tools.torch_decode_probe import waits_allowed
+    rec = dict(card=card_line)
+    x = torch.as_tensor(img, device='cuda')
+    model.eval()
+    with torch.inference_mode():
+        model.encode(x)
+        enc, rec['encode_s'] = _no_waits('LIST.encode',
+                                         lambda: model.encode(x))
+        for R in NO_WAITS_GRIDS:
+            ex = LISTExecutor(default_config(vox_res=R, sdf_scale=10.0),
+                              model)
+            plan = ex._dense_plan(1)
+            ex._decode(enc, *plan)
+            grid, rec[f'decode_{R}_s'] = _no_waits(
+                f'the {R}^3 decode', lambda: ex._decode(enc, *plan))
+            if grid.shape != (R,) * 3 or not bool(torch.isfinite(grid).all()):
+                fail(f'the checked {R}^3 decode is not a finite grid')
+            del ex, grid
+        del enc
+    torch.cuda.empty_cache()
+
+    b, nq, R = NO_WAITS_STEP
+    tcfg = default_config(vox_res=R, train_batch_size=b,
+                          sample_point_density=nq, sdf_scale=10.0,
+                          remat_save_samples=1)
+    rng = np.random.RandomState(1)
+    batch = {
+        'rgb_image': rng.rand(b, 224, 224, 3).astype(np.float32),
+        'points': rng.uniform(-0.5, 0.5, (b, nq, 3)).astype(np.float32),
+        'values': (rng.randn(b, nq) * 0.05).astype(np.float32),
+        'occ': (rng.rand(b, R, R, R) > 0.99).astype(np.float32),
+    }
+    torch.manual_seed(1)
+    tex = LISTExecutor(tcfg, LIST.from_config(tcfg))
+    tex.train(batch)
+    tex._to_device = waits_allowed(tex._to_device)
+    tex._sync = waits_allowed(tex._sync)
+    (_, losses), rec['step_s'] = _no_waits(
+        'the train step', lambda: tex.train(batch),
+        inputs=len(tex._train_keys(batch)))
+    rec['losses'] = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in rec['losses'].values()):
+        fail(f'the checked train step\'s losses: {rec["losses"]}')
+    del tex
+    torch.cuda.empty_cache()
+    print('no waits', json.dumps(rec), flush=True)
+    return rec
 
 
 def _rel(a, r) -> float:
@@ -1990,85 +2090,96 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
     return rows
 
 
-def _serial_decode(ex, enc, slab, head):
-    """``LISTExecutor._decode``'s split before its host threads: one host
-    thread dispatches the cards one after another (each with its card
-    current), for the comparison only."""
+def _threaded_decode(ex, enc, slab, head):
+    """``LISTExecutor._decode``'s split with a host thread a card (each
+    with its card current) instead of one thread: for the comparison
+    only."""
+    from concurrent.futures import ThreadPoolExecutor
     from list_tpu_torch.train import executors
     devs = ex.decode_devices
     rows = ex.vox_res // len(devs)
-    parts = []
-    for i, d in enumerate(devs):
-        dec = ex.model.sdf_decoder if d == ex.device \
-            else copy.deepcopy(ex.model.sdf_decoder).to(d)
-        with torch.cuda.device(d):
-            parts.append(executors.dense_grid_sdf(
-                dec, [f.to(d) for f in enc['vox_feat']],
-                [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d),
-                ex.vox_res, slab=slab, compute_dtype=ex.compute_dtype,
-                bb_min=ex.bb_min, bb_max=ex.bb_max, use_pallas=head,
-                x_range=(i * rows, (i + 1) * rows)))
+    inputs = [(ex.model.sdf_decoder if d == ex.device
+               else copy.deepcopy(ex.model.sdf_decoder).to(d),
+               [f.to(d) for f in enc['vox_feat']],
+               [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d))
+              for d in devs]
+    inference = torch.is_inference_mode_enabled()
+
+    def decode(i):
+        with torch.cuda.device(devs[i]), torch.inference_mode(inference):
+            return torch.cat(list(executors.dense_grid_slabs(
+                *inputs[i], ex.vox_res, slab=slab,
+                compute_dtype=ex.compute_dtype, bb_min=ex.bb_min,
+                bb_max=ex.bb_max, use_pallas=head,
+                x_range=(i * rows, (i + 1) * rows))))
+
+    with ThreadPoolExecutor(len(devs)) as pool:
+        parts = list(pool.map(decode, range(len(devs))))
     return torch.cat([p.to(ex.device) for p in parts])
 
 
 def _timed_decodes(devs, decode, reps=CARDS_DECODE_REPS):
     """``decode()`` 1 + ``reps`` times, each between synchronizations of
     ``devs``: the median host-clock seconds of a decode and, per card, the
-    median CUDA-event seconds of its ``dense_grid_sdf`` call(s) (events on
-    the card's stream, recorded with it current); then one more decode as
-    a probe of the host: per card, the host seconds of its
-    ``dense_grid_sdf`` call(s), and the count and host seconds of the host
-    arrays uploaded to it there (``torch.as_tensor`` onto a card copies
-    from pageable memory and waits on the card's stream)."""
+    median CUDA-event seconds of its ``dense_grid_slabs`` call(s), from
+    before its first slab to after its last (events on the card's stream,
+    recorded with it current); then one more decode as a probe of the
+    host: per card, the host seconds spent in its slabs, and the count and
+    host seconds of the host arrays made tensors there
+    (``numpy_uploads``: an upload from pageable memory waits on the card's
+    stream; none once the constants are on the cards)."""
     from list_tpu_torch.train import executors
-    real, as_tensor = executors.dense_grid_sdf, torch.as_tensor
-    marks, uploads = [], []
+    from tools.torch_decode_probe import numpy_uploads
+    real = executors.dense_grid_slabs
+    marks = []
 
     def timed(*a, **kw):
+        it = real(*a, **kw)
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0 = time.perf_counter()
-        s.record()
-        out = real(*a, **kw)
-        e.record()
-        marks.append((torch.cuda.current_device(), s, e,
-                      time.perf_counter() - t0))
-        return out
+        mark = [None, s, e, 0.0]
+        marks.append(mark)
+        while True:
+            t0 = time.perf_counter()
+            if mark[0] is None:
+                mark[0] = torch.cuda.current_device()
+                s.record()
+            try:
+                out = next(it)
+            except StopIteration:
+                return
+            e.record()
+            mark[3] += time.perf_counter() - t0
+            yield out
 
-    def upload(data, *a, **kw):
-        t0 = time.perf_counter()
-        out = as_tensor(data, *a, **kw)
-        if out.device.type == 'cuda' and not isinstance(data, torch.Tensor):
-            uploads.append((out.device.index, time.perf_counter() - t0))
-        return out
-
-    executors.dense_grid_sdf = timed
+    executors.dense_grid_slabs = timed
     host, per_card = [], []
     try:
         for rep in range(reps + 2):
             marks.clear()
-            if rep == reps + 1:
-                torch.as_tensor = upload
             _sync(devs)
             t0 = time.perf_counter()
-            grid = decode()
-            _sync(devs)
             if rep <= reps:
+                grid = decode()
+                _sync(devs)
                 host.append(time.perf_counter() - t0)
+            else:
+                with numpy_uploads() as uploads:
+                    grid = decode()
+                _sync(devs)
             card = {}
             for i, s, e, _ in marks:
                 card[f'cuda:{i}'] = card.get(f'cuda:{i}', 0.0) \
                     + s.elapsed_time(e) / 1e3
             per_card.append(card)
     finally:
-        executors.dense_grid_sdf = real
-        torch.as_tensor = as_tensor
+        executors.dense_grid_slabs = real
     keys = sorted(per_card[-1])
     probe = {k: dict(host_s=sum(m[3] for m in marks
                                 if f'cuda:{m[0]}' == k),
-                     uploads=sum(1 for u in uploads if f'cuda:{u[0]}' == k),
-                     upload_s=sum(u[1] for u in uploads
-                                  if f'cuda:{u[0]}' == k))
+                     uploads=sum(1 for u in uploads if u[0] == k),
+                     upload_s=sum(u[1] for u in uploads if u[0] == k))
              for k in keys}
+    probe['host arrays'] = len(uploads)
     return grid, dict(
         host_s=float(np.median(host[1:])), host_all_s=host,
         card_s={k: float(np.median([c[k] for c in per_card[1:-1]]))
@@ -2078,13 +2189,14 @@ def _timed_decodes(devs, decode, reps=CARDS_DECODE_REPS):
 def cards_decode_phase(args, devs, lines, model, imgs, gt):
     """The dense decode split over ``devs`` (``--mesh_shape N`` and
     ``--mesh_shape 1 N``) against one card (cuda:0) from the same encoding:
-    at 128^3 and 256^3 (the 128^3 features), the grid bit for bit (else
-    within atol 5e-4 / rtol 2e-2), the K1 launches, and the decode's
-    host-clock and per-card event times on one card, split with the
-    executor's host thread a card, and split from one host thread
-    (``_serial_decode``); then ``predict_grid`` under both mesh shapes,
-    ``predict_grid_batch`` of two images and ``test`` of one against one
-    card's."""
+    at 128^3 and 256^3 (the 128^3 features), the grid bit for bit, the K1
+    launches, and the decode's host-clock and per-card event times on one
+    card, split as the executor dispatches it (from one host thread), and
+    split with a host thread a card (``_threaded_decode``); one more split
+    decode under ``torch.cuda.set_sync_debug_mode('error')`` and the
+    upload probe (``_no_waits``); then ``predict_grid`` under both mesh
+    shapes, ``predict_grid_batch`` of two images and ``test`` of one
+    against one card's."""
     from list_tpu_torch.config import default_config
     from list_tpu_torch.train import LISTExecutor
     n = len(devs)
@@ -2117,17 +2229,19 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
             g, rec['split'] = _timed_decodes(
                 devs, lambda: ex._decode(enc, *plan))
             rec['split_launches'] = launch_counts()
-            gs, rec['split_one_thread'] = _timed_decodes(
-                devs, lambda: _serial_decode(ex, enc, *plan))
+            gt_, rec['split_threads'] = _timed_decodes(
+                devs, lambda: _threaded_decode(ex, enc, *plan))
+            gw, rec['split_no_waits_s'] = _no_waits(
+                f'the {R}^3 split decode', lambda: ex._decode(enc, *plan))
             rec['peak_device_gb'] = {
                 str(d): torch.cuda.max_memory_allocated(d) / 1e9
                 for d in devs}
             err = float((g - g1).abs().max())
-            tol = 5e-4 + 2e-2 * float(g1.abs().max())
             rec.update(bitwise=bool(torch.equal(g, g1)),
-                       one_thread_bitwise=bool(torch.equal(gs, g)),
-                       max_abs_err=err, tol=tol)
-            del g, g1, gs
+                       threads_bitwise=bool(torch.equal(gt_, g)),
+                       no_waits_bitwise=bool(torch.equal(gw, g)),
+                       max_abs_err=err)
+            del g, g1, gt_, gw
         want = dict(NO_LAUNCHES, fused_stack_head=(CARDS_DECODE_REPS + 2)
                     * R // plan[0])
         want1 = dict(NO_LAUNCHES, fused_stack_head=(CARDS_DECODE_REPS + 2)
@@ -2137,8 +2251,10 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
             fail(f'{R}^3 decode: launches {rec["split_launches"]} split and '
                  f'{rec["one_card_launches"]} on one card, expected {want} '
                  f'and {want1}')
-        if not (rec['one_thread_bitwise'] and err <= tol):
-            fail(f'{R}^3: the split decode disagrees with one card\'s')
+        if not (rec['bitwise'] and rec['threads_bitwise']
+                and rec['no_waits_bitwise']):
+            fail(f'{R}^3: the split decode is not one card\'s grid bit for '
+                 'bit')
         # predict_grid under both mesh shapes
         ref = one.predict_grid(imgs[0], **grid_kw)
         rec_p = dict(R=R, decode_s_one_card=one.timings['decode_s'])
@@ -2574,7 +2690,7 @@ def cards_main(args, kind, build, native, stencil3d, fused_fc0):
             r['device']: dict(ms=r['ms'], max_abs_err=r['max_abs_err'],
                               launches=r['launches']) for r in kernels},
         decode={R: dict(one_card_s=d['one_card'], split_s=d['split'],
-                        split_one_thread_s=d['split_one_thread'],
+                        split_threads_s=d['split_threads'],
                         bitwise=d['bitwise'])
                 for R, d in decode['decode'].items()},
         step_s={name: {r['rank']: r['jobs'][name]['step_s']
@@ -2740,6 +2856,9 @@ def main():
     if launches['fused_stack_head'] < args.requests:
         fail('fused_stack_head was not launched for every request')
 
+    # ---- no waits: warm encode, 128^3 and 256^3 decodes, train step ------
+    no_waits = sync_phase(model, imgs[0], card_line)
+
     # ---- small input against the CPU plain path ---------------------------
     small = default_config(vox_res=32, sdf_scale=10.0, fetch_mode='grid')
     m_gpu = copy.deepcopy(cpu_model)
@@ -2888,6 +3007,7 @@ def main():
                   conv_inference=conv, conv_train=conv_train, dk=dk,
                   conv_gradients_on_card=grads_on_card, head=head, mlp=mlp,
                   requests=requests, peak_device_gb=peak_gb,
+                  no_waits=no_waits,
                   small_input_err=ref_err, small_input_k4_err=k4_err,
                   sweep=sweep, train_steps=steps,
                   train_launches=train_launches, gradient_check=gcheck,

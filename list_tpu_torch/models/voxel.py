@@ -35,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from list_tpu_torch.models.norm import BatchNorm
+from list_tpu_torch.ops.consts import device_const
 from list_tpu_torch.ops.cuda.stencil3d import conv3x3x3
 from list_tpu_torch.ops.sampling import grid_sample_3d
 
@@ -115,8 +116,8 @@ def sample_multiscale(feat: Sequence[torch.Tensor], p: torch.Tensor,
     """feat: channels-last (B, D, H, W, C_s) volumes; p (B, N, 3) normalized
     coords -> (B, N, sum(C_s) * 7) ordered (c * 7 + d)."""
     B, N, _ = p.shape
-    disp = torch.as_tensor(make_displacements(delta), dtype=p.dtype,
-                           device=p.device)
+    disp = device_const(('displacements', delta),
+                        lambda: make_displacements(delta), p.device, p.dtype)
     pd = (p[:, None, :, :] + disp[None, :, None, :]).reshape(B, 7 * N, 3)
     outs = []
     for f in feat:

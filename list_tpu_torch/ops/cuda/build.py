@@ -35,8 +35,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-Xptxas', '-v']
 
 _lock = threading.Lock()
-# held by the wrappers around their launch counters: the split decode
-# launches K1 from one host thread per card
+# held by the wrappers around their launch counters: a caller may launch
+# from several host threads (a host thread a card, say)
 count_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -24,7 +24,10 @@ so trilinear sampling factorizes per axis with static indices and weights
    and the sum cast to the compute dtype, and ``fused_fc0_mlp`` (K4 on the
    card) as the head.
 
-The JAX ``lax.scan`` over slabs is a Python loop here.  ``compute_dtype``
+The JAX ``lax.scan`` over slabs is a Python generator here
+(``dense_grid_slabs``; ``dense_grid_sdf`` concatenates it).  The host
+plans and indices stay on each device (``ops/consts.py``), so a warm
+decode never waits for the device.  ``compute_dtype``
 is bf16 in production and f32 in the parity tests; where the JAX package
 keeps an f32 product of bf16 operands, operands are upcast before the
 product (exact), and where it casts straight back, the cast follows.
@@ -32,11 +35,13 @@ product (exact), and where it casts straight back, the cast follows.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import functools
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from list_tpu_torch.ops.consts import device_const
 from list_tpu_torch.ops.cuda.fused_fc0 import (fused_fc0_mlp,
                                                fused_stack_head,
                                                fused_stack_head_plain)
@@ -145,18 +150,27 @@ def _scan_x_plans(R, r_in, S, delta, bb_min, bb_max, taps=TAPS):
     return los, Ls
 
 
+# the per-slab plans of an (R, r_in, S, delta, bb) once per process: the
+# decode reads their window starts on the host at every call
+_host_x_plans = functools.lru_cache(maxsize=64)(_scan_x_plans)
+
+
 # ---- tensor helpers ----------------------------------------------------------
 
 def resample_axis(vol: torch.Tensor, axis: int, r_out: int, shift: float,
                   bb_min: float = -0.5, bb_max: float = 0.5) -> torch.Tensor:
-    """Border-clamped linear resample of one axis (static indices)."""
-    i0, i1, w = _axis_plan(r_out, vol.shape[axis], shift, bb_min, bb_max)
+    """Border-clamped linear resample of one axis (static indices, kept on
+    the device)."""
+    key = (r_out, int(vol.shape[axis]), shift, bb_min, bb_max)
+    plan = lambda: _axis_plan(*key)  # noqa: E731
+    idx = device_const(('resample_idx',) + key,
+                       lambda: np.stack(plan()[:2]), vol.device, torch.long)
     wshape = [1] * vol.ndim
     wshape[axis] = r_out
-    dev = vol.device
-    w = torch.as_tensor(w, device=dev).to(vol.dtype).reshape(wshape)
-    v0 = vol.index_select(axis, torch.as_tensor(i0, device=dev).long())
-    v1 = vol.index_select(axis, torch.as_tensor(i1, device=dev).long())
+    w = device_const(('resample_w',) + key, lambda: plan()[2], vol.device,
+                     vol.dtype).reshape(wshape)
+    v0 = vol.index_select(axis, idx[0])
+    v1 = vol.index_select(axis, idx[1])
     return v0 * (1.0 - w) + v1 * w
 
 
@@ -177,23 +191,33 @@ def _dyn_slice0(v: torch.Tensor, start: int, size: int) -> torch.Tensor:
     return v[start:start + size]
 
 
-@torch.no_grad()
-def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
-                   feat_l2: List[torch.Tensor], trans_mat: torch.Tensor,
-                   vox_res: int, slab: Optional[int] = None,
-                   delta: float = 0.0722,
-                   compute_dtype: torch.dtype = torch.bfloat16,
-                   bb_min: float = -0.5, bb_max: float = 0.5,
-                   coarse_proj: int = 16,
-                   coarse_outside: Optional[bool] = None,
-                   hoist_variants: Optional[bool] = None,
-                   use_pallas: int = 2,
-                   x_range: Optional[Tuple[int, int]] = None
-                   ) -> torch.Tensor:
+def dense_grid_sdf(*args, **kwargs) -> torch.Tensor:
     """Dense (R^3) SDF for batch size 1 -> (R, R, R) f32 raw SDF, or with
-    ``x_range`` (x0, x1) its x rows [x0, x1) as (x1 - x0, R, R), each a
-    whole number of slabs (one device's block of the JAX package's
-    ``shard_map`` over the slabs).
+    ``x_range`` (x0, x1) its x rows [x0, x1) as (x1 - x0, R, R): the slabs
+    of ``dense_grid_slabs`` (same arguments), concatenated."""
+    return torch.cat(list(dense_grid_slabs(*args, **kwargs)), dim=0)
+
+
+@torch.no_grad()
+def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
+                     feat_l2: List[torch.Tensor], trans_mat: torch.Tensor,
+                     vox_res: int, slab: Optional[int] = None,
+                     delta: float = 0.0722,
+                     compute_dtype: torch.dtype = torch.bfloat16,
+                     bb_min: float = -0.5, bb_max: float = 0.5,
+                     coarse_proj: int = 16,
+                     coarse_outside: Optional[bool] = None,
+                     hoist_variants: Optional[bool] = None,
+                     use_pallas: int = 2,
+                     x_range: Optional[Tuple[int, int]] = None
+                     ) -> Iterator[torch.Tensor]:
+    """The dense (R^3) SDF of one image (batch size 1) as a generator of
+    its x slabs, each (slab, R, R) f32 raw SDF, over all x rows or with
+    ``x_range`` (x0, x1) over rows [x0, x1), a whole number of slabs (one
+    device's block of the JAX package's ``shard_map`` over the slabs).
+    The first slab also runs the setup (perceptual projection, groups,
+    coarse term), so that a caller can queue several devices' slabs in
+    turns (``LISTExecutor._decode``).
 
     decoder: the ``VoxelDecoder2`` (fc_0..fc_out Linear layers).
     vox_feats: channels-last (1, R_s, R_s, R_s, C_s) volumes; feat_l2:
@@ -231,8 +255,10 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
         proj = ()  # degenerate tiny models: keep the plain path
     kept = tuple(si for si in range(len(vox_feats)) if si not in proj)
 
-    def rows(idx) -> torch.Tensor:
-        return torch.as_tensor(idx, device=dev)
+    def rows(key, make) -> torch.Tensor:
+        """fc_0 row indices, kept on the device; the gather stays per
+        call, so it reads the current weights."""
+        return device_const(('w1_rows', channels) + key, make, dev)
 
     if structured:
         groups = []
@@ -245,16 +271,19 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
         # fc_0 rows of each structured part [A5 | Ax- | Ax+] per group
         w1_parts = []
         for g in groups:
-            gr = _group_w1_rows(channels, g)
             cg = sum(channels[si] for si in g)
-            for sl in (slice(0, 5 * cg), slice(5 * cg, 6 * cg),
-                       slice(6 * cg, 7 * cg)):
-                w1_parts.append(w1v[rows(gr[sl])].to(dt))
+            for j, sl in enumerate((slice(0, 5 * cg), slice(5 * cg, 6 * cg),
+                                    slice(6 * cg, 7 * cg))):
+                w1_parts.append(w1v[rows(
+                    ('group', g, j),
+                    lambda g=g, sl=sl: _group_w1_rows(channels, g)[sl])
+                ].to(dt))
     else:
         # per kept scale: its (disp, channel) stack's fc_0 rows
         groups = [(si,) for si in kept]
-        w1_parts = [w1v[rows(_scale_w1_rows(channels, si))].to(dt)
-                    for si in kept]
+        w1_parts = [w1v[rows(('scale', si),
+                             lambda si=si: _scale_w1_rows(channels, si))
+                        ].to(dt) for si in kept]
     w1_percep = w1[n_vox_rows:n_vox_rows + n_percep]
     w1_xyz = w1[n_vox_rows + n_percep:]
 
@@ -274,10 +303,12 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
     ent_chs = [sum(channels[si] for si in g) for g in groups]
     plan_los, plan_Ls = [], []
     for g in groups:
-        los, Ls = _scan_x_plans(R, vols[g[0]].shape[0], S, delta, bb_min,
-                                bb_max)
-        plan_los.append(los)
-        plan_Ls.append(torch.as_tensor(Ls, device=dev).to(dt))
+        key = (R, int(vols[g[0]].shape[0]), S, delta, bb_min, bb_max)
+        # the window starts stay host integers (_dyn_slice0's)
+        plan_los.append(_host_x_plans(*key)[0])
+        plan_Ls.append(device_const(('x_plans',) + key,
+                                    lambda key=key: _host_x_plans(*key)[1],
+                                    dev, dt))
 
     if hoist_variants is None:
         hoist_variants = R <= 128 and S <= 16
@@ -305,15 +336,16 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
                     for v in (zy_variants(f, f.shape[0]) for f in ent_vols)]
 
     # coarse-projected volumes, folded through the fc_0 tap blocks
-    proj_vols, proj_Ls = [], []
+    proj_vols = []
     for si in proj:
         V = vols[si]
         r_in = V.shape[0]
         dz = norm_shift(delta, r_in)
 
         def P(t, si=si, V=V):
-            return _mm32(V, w1v[rows(_tap_w1_rows(channels, si, t))].to(dt)
-                         ).to(dt)
+            return _mm32(V, w1v[rows(
+                ('tap', si, t),
+                lambda: _tap_w1_rows(channels, si, t))].to(dt)).to(dt)
 
         def rz(v, s):
             return resample_axis(v, 2, R, s, bb_min, bb_max)
@@ -328,7 +360,6 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
         Uxm = ry(rz(P(5), 0.0), 0.0)
         proj_vols.extend(U.reshape(r_in, R * R, U.shape[-1])
                          for U in (U0, Uxp, Uxm))
-        proj_Ls.append(_scan_x_plans_full(R, r_in, S, delta, bb_min, bb_max))
 
     if coarse_outside is None:
         coarse_outside = R <= 128
@@ -336,9 +367,17 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
     Ucat = Lcat = Cfull = None
     if proj:
         Ucat = torch.cat(proj_vols, dim=0)  # (Ktot, R*R, 512)
-        Lcat = torch.as_tensor(np.concatenate(
-            [np.transpose(L, (0, 2, 1, 3)).reshape(nslabs, S, -1)
-             for L in proj_Ls], axis=-1), device=dev).to(dt)
+        r_ins = tuple(int(vols[si].shape[0]) for si in proj)
+
+        def coarse_plans():
+            return np.concatenate(
+                [np.transpose(_scan_x_plans_full(R, r_in, S, delta, bb_min,
+                                                 bb_max),
+                              (0, 2, 1, 3)).reshape(nslabs, S, -1)
+                 for r_in in r_ins], axis=-1)
+
+        Lcat = device_const(('coarse_x_plans', R, S, delta, bb_min, bb_max,
+                             r_ins), coarse_plans, dev, dt)
         if outside:
             # the x rows' coarse term once, cast to the compute dtype
             Cfull = _mm32(Lcat[k0:k1].reshape(x1 - x0, -1),
@@ -355,7 +394,6 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
     ar = torch.arange(R, dtype=torch.float32, device=dev)
     ar_s = torch.arange(S, dtype=torch.float32, device=dev)
 
-    out = []
     for k in range(k0, k1):
         xs = k * S
         parts = []
@@ -439,5 +477,4 @@ def dense_grid_sdf(decoder, vox_feats: List[torch.Tensor],
                 else fused_stack_head_plain
             sdf = head(parts, coarse, percep, qxyz, w1_parts, *tail)
         del parts
-        out.append(sdf.reshape(S, R, R))
-    return torch.cat(out, dim=0)
+        yield sdf.reshape(S, R, R)

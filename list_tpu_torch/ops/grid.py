@@ -46,5 +46,7 @@ def voxelize(points: torch.Tensor, bb_min: float, bb_max: float, res: int,
 
 
 def reorder_and_scale_query(query: torch.Tensor) -> torch.Tensor:
-    """The reference's decoder query remap ``q[..., [2, 1, 0]] * 2``."""
-    return query[..., [2, 1, 0]] * 2.0
+    """The reference's decoder query remap ``q[..., [2, 1, 0]] * 2``, as a
+    flip of the last axis: a list index would upload its indices from the
+    host at every call."""
+    return query.flip(-1) * 2.0

@@ -39,7 +39,7 @@ def occupancy_loss(occ_pred: torch.Tensor, occ_gt: torch.Tensor,
     """Weighted BCE x1000 over the full voxel grid."""
     occ_pred = occ_pred.float()
     occ_gt = occ_gt.float()
-    floor = occ_pred.new_tensor(1e-8)
+    floor = occ_pred.new_full((), 1e-8)  # filled on the device
     la = torch.log(torch.maximum(occ_pred + 1e-8, floor))
     lb = torch.log(torch.maximum(1 - occ_pred + 1e-8, floor))
     return 1000.0 * (-w * (occ_gt * la).mean()

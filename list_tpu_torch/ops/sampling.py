@@ -14,6 +14,8 @@ import functools
 import numpy as np
 import torch
 
+from list_tpu_torch.ops.consts import device_const
+
 
 def _unnormalize(coord, size: int, align_corners: bool):
     if align_corners:
@@ -131,14 +133,15 @@ def resize_bilinear_align_corners(image: torch.Tensor, out_h: int,
     """``F.interpolate(mode='bilinear', align_corners=True)`` on (B, H, W, C)
     as two interpolation-matrix products in full f32 (TF32 is off, see
     ``device.py``); the matrices are rounded to the image's dtype (f32 for
-    bf16 images), as the JAX package rounds them."""
+    bf16 images), as the JAX package rounds them, and kept on the
+    device."""
     B, H, W, C = image.shape
     if H == out_h and W == out_w:
         return image
     dt = 'float64' if image.dtype == torch.float64 else 'float32'
-    mh = torch.as_tensor(_resize_matrix(H, out_h, dt), device=image.device,
-                         dtype=image.dtype)
-    mw = torch.as_tensor(_resize_matrix(W, out_w, dt), device=image.device,
-                         dtype=image.dtype)
+    mh, mw = (device_const(('resize', n_in, n_out, dt),
+                           lambda: _resize_matrix(n_in, n_out, dt),
+                           image.device, image.dtype)
+              for n_in, n_out in ((H, out_h), (W, out_w)))
     out = torch.einsum('oh,bhwc->bowc', mh, image)
     return torch.einsum('pw,bowc->bopc', mw, out)

@@ -41,7 +41,6 @@ from __future__ import annotations
 import contextlib
 import copy
 import time
-from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -52,7 +51,7 @@ from list_tpu_torch.device import resolve_device
 from list_tpu_torch.eval.metrics import eval_mesh, eval_pointcloud
 from list_tpu_torch.ops.band import (BandGrid, DeviceSpans, band_encode,
                                      fetch_grid_f32, mark_ready)
-from list_tpu_torch.ops.dense_grid import dense_grid_sdf
+from list_tpu_torch.ops.dense_grid import dense_grid_slabs
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
 from list_tpu_torch.ops.losses import chamfer_loss, occupancy_loss, sdf_loss
 from list_tpu_torch.parallel.mesh import shard_batch
@@ -352,36 +351,32 @@ class LISTExecutor(BaseExecutor):
         ``decode_devices``: device i of N decodes x rows
         [i R / N, (i + 1) R / N) from its copy of the features and the
         decoder, and the ranges are concatenated on this executor's
-        device.  The copies are queued first, then over several cards
-        each card's decode is dispatched from a host thread of its own,
-        with that card current: a decode waits on its card's stream
-        wherever it uploads a host array (PyTorch synchronizes a pageable
-        copy), so one thread would run the cards one after another."""
+        device.  Everything is queued from this thread, the copies first,
+        then the devices' slabs in turns (slab k on every device, then
+        slab k + 1), each with its device current.  Once a (device, R,
+        slab, head) has been decoded its constants are on the card
+        (``ops/consts.py``) and nothing waits for a card but the launch
+        queue, which the turns keep from holding one card's slabs while
+        the others idle: the cards run at the same time (the counterpart
+        of the JAX package's one ``shard_map`` dispatch over the
+        slabs)."""
         devs = self.decode_devices
         rows = self.vox_res // len(devs)
-        inputs = [(self.model.sdf_decoder if d == self.device
-                   else copy.deepcopy(self.model.sdf_decoder).to(d),
-                   [f.to(d) for f in enc['vox_feat']],
-                   [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d))
-                  for d in devs]
-        inference = torch.is_inference_mode_enabled()
-
-        def decode(i):
-            guard = (torch.cuda.device(devs[i]) if devs[i].type == 'cuda'
-                     else contextlib.nullcontext())
-            with guard, torch.inference_mode(inference):
-                return dense_grid_sdf(
-                    *inputs[i], self.vox_res, slab=slab,
-                    compute_dtype=self.compute_dtype, bb_min=self.bb_min,
-                    bb_max=self.bb_max, use_pallas=use_pallas,
-                    x_range=(i * rows, (i + 1) * rows))
-
-        if len(set(devs)) > 1 and devs[0].type == 'cuda':
-            with ThreadPoolExecutor(len(devs)) as pool:
-                parts = list(pool.map(decode, range(len(devs))))
-        else:
-            parts = [decode(i) for i in range(len(devs))]
-        return torch.cat([p.to(self.device) for p in parts])
+        slabs = [dense_grid_slabs(
+            self.model.sdf_decoder if d == self.device
+            else copy.deepcopy(self.model.sdf_decoder).to(d),
+            [f.to(d) for f in enc['vox_feat']],
+            [f.to(d) for f in enc['feat_l2']], enc['trans_mat'].to(d),
+            self.vox_res, slab=slab, compute_dtype=self.compute_dtype,
+            bb_min=self.bb_min, bb_max=self.bb_max, use_pallas=use_pallas,
+            x_range=(i * rows, (i + 1) * rows)) for i, d in enumerate(devs)]
+        parts = [[] for _ in devs]
+        for _ in range(rows // slab):
+            for i, d in enumerate(devs):
+                with (torch.cuda.device(d) if d.type == 'cuda'
+                      else contextlib.nullcontext()):
+                    parts[i].append(next(slabs[i]))
+        return torch.cat([torch.cat(p).to(self.device) for p in parts])
 
     def _finish(self, grid, fetch_dtype, fetch_mode):
         wire = torch.bfloat16 if fetch_dtype == 'bfloat16' else torch.float32
@@ -541,12 +536,14 @@ class LISTExecutor(BaseExecutor):
         """One optimizer step on a host batch dict ('rgb_image', 'points',
         'values', 'occ', optional 'transmat') -> (None, losses).  The
         floating-point inputs take the parameters' dtype; the occupancy
-        target is f32, as the occupancy loss computes in f32."""
+        target is f32, as the occupancy loss computes in f32 (a soft f32
+        target goes through f32 or f64 parameters' dtype exactly).  The
+        batch's upload (``_to_device``) and the closing synchronization
+        are the step's only waits on the card."""
         keep = self._rank_batch(self._train_keys(batch))
         t0 = time.perf_counter()
-        occ_gt = torch.as_tensor(np.asarray(keep.pop('occ')),
-                                 device=self.device).float()  # uint8 or f32
         dev = self._to_device(keep)
+        occ_gt = dev.pop('occ').float()  # uint8, or f32 through the dtype
 
         def losses():
             pred = self.model(dev['rgb_image'], dev['points'],

@@ -456,3 +456,95 @@ def test_device_out_times_match_the_synchronized_phases(cuda, card_executor):
         s = float(np.median([t[i] for t in synced[2:]]))
         e = float(np.median([t[i] for t in events[2:]]))
         assert abs(e - s) <= 0.1 * s, (name, e, s)
+
+
+# ---- no waits on the card once the constants are there -------------------------
+
+def test_warm_encode_decode_and_step_do_not_wait_on_the_card(cuda,
+                                                             card_executor):
+    """After a warm call, an encode and a 128^3 dense decode of the
+    full-width LIST and a small train step (vox_res 32, batch 2, 1,024
+    queries, remat, ``--remat_save_samples 1``) make no synchronizing call
+    under ``torch.cuda.set_sync_debug_mode('error')`` -- the step's batch
+    upload and closing synchronization aside -- and no tensor of a host
+    array (``ops/consts.py`` keeps their constants on the card)."""
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import LISTExecutor
+    from tools.torch_decode_probe import (numpy_uploads, sync_sites,
+                                          waits_allowed)
+    ex, imgs, _, _ = card_executor
+    img = torch.as_tensor(imgs[2], device=cuda)
+    plan = ex._dense_plan()
+    with torch.inference_mode():
+        ex._decode(ex.model.encode(img), *plan)
+        torch.cuda.synchronize()
+        with numpy_uploads() as uploads, sync_sites('error'):
+            grid = ex._decode(ex.model.encode(img), *plan)
+        torch.cuda.synchronize()
+    assert uploads == [] and grid.shape == (128,) * 3
+
+    cfg = default_config(vox_res=32, train_batch_size=2,
+                         sample_point_density=1024, sdf_scale=10.0,
+                         remat_save_samples=1)
+    rng = np.random.RandomState(2)
+    batch = {'rgb_image': rng.rand(2, 224, 224, 3).astype(np.float32),
+             'points': rng.uniform(-0.5, 0.5, (2, 1024, 3)).astype(
+                 np.float32),
+             'values': (rng.randn(2, 1024) * 0.05).astype(np.float32),
+             'occ': (rng.rand(2, 32, 32, 32) > 0.9).astype(np.float32)}
+    torch.manual_seed(2)
+    tex = LISTExecutor(cfg, LIST.from_config(cfg))
+    tex.train(batch)
+    tex._to_device = waits_allowed(tex._to_device)
+    tex._sync = waits_allowed(tex._sync)
+    with numpy_uploads() as uploads, sync_sites('error'):
+        _, losses = tex.train(batch)
+    assert len(uploads) == len(tex._train_keys(batch))  # the batch only
+    assert all(np.isfinite(float(v)) for v in losses.values())
+
+
+def test_split_decode_from_one_thread_waits_on_no_card(cuda, monkeypatch):
+    """Under --mesh_shape N (every card), a warm split decode at 256^3 (8
+    slabs a card on 4 cards) is queued from the calling thread alone, the
+    cards' slabs in turns, makes no synchronizing call and no tensor of a
+    host array, and gives the one-card grid bit for bit."""
+    _need_cards(2)
+    import threading
+    from list_tpu_torch.config import default_config
+    from list_tpu_torch.models import LIST
+    from list_tpu_torch.train import LISTExecutor, executors
+    from tools.torch_decode_probe import numpy_uploads, sync_sites
+    n = next(k for k in (8, 4, 2) if torch.cuda.device_count() >= k)
+    torch.cuda.set_device(0)
+    torch.manual_seed(0)
+    model = LIST.from_config(default_config(vox_res=128))
+    one = LISTExecutor(default_config(vox_res=256, sdf_scale=10.0), model)
+    split = LISTExecutor(default_config(vox_res=256, sdf_scale=10.0,
+                                        mesh_shape=[n]), model)
+    img = torch.as_tensor(np.random.RandomState(0).rand(
+        1, 224, 224, 3).astype(np.float32), device=cuda)
+    order = []
+    real = executors.dense_grid_slabs
+
+    def spy(*a, **kw):
+        for out in real(*a, **kw):
+            order.append((threading.get_ident(), out.device.index))
+            yield out
+
+    monkeypatch.setattr(executors, 'dense_grid_slabs', spy)
+    with torch.inference_mode():
+        enc = model.encode(img)
+        ref = one._decode(enc, *one._dense_plan(1))
+        plan = split._dense_plan(n)
+        split._decode(enc, *plan)
+        for i in range(n):
+            torch.cuda.synchronize(i)
+        order.clear()
+        with numpy_uploads() as uploads, sync_sites('error'):
+            got = split._decode(enc, *plan)
+        for i in range(n):
+            torch.cuda.synchronize(i)
+    assert {t for t, _ in order} == {threading.get_ident()}
+    assert [c for _, c in order] == list(range(n)) * (256 // n // plan[0])
+    assert uploads == [] and torch.equal(got, ref)

@@ -12,8 +12,10 @@ from list_tpu.models import LIST as JLIST
 from list_tpu.ops.dense_grid import dense_grid_sdf as j_dense
 from list_tpu_torch.bridge import load_flax_variables
 from list_tpu_torch.models import LIST
+from list_tpu_torch.ops import consts
 from list_tpu_torch.ops.cuda import fused_fc0
 from list_tpu_torch.ops.dense_grid import dense_grid_sdf
+from tools.torch_decode_probe import numpy_uploads
 
 R = 16
 TINY = dict(vox_res=R, point_feat=(128, 8, 8, 3), point_degree=(2, 2, 4),
@@ -168,3 +170,80 @@ def test_dense_grid_fine_grid_matches_the_xla_head(pair):
                          **kw).numpy()
     assert got.shape == (2 * R,) * 3
     np.testing.assert_allclose(got, ref, atol=2e-4, rtol=1e-3)
+
+
+# ---- constants kept on the device ----------------------------------------------
+
+UPLOAD_CASES = {
+    'R16': dict(vox_res=R, slab=4, coarse_proj=8, coarse_outside=True),
+    'R32-coarse-projected': dict(vox_res=2 * R, slab=8, coarse_proj=8,
+                                 coarse_outside=False, hoist_variants=False),
+}
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread for the test (tiny ops beside the other test
+    workers), restored afterwards."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize('use_pallas', [0, 1, 2])
+@pytest.mark.parametrize('case', list(UPLOAD_CASES))
+def test_dense_grid_second_call_uploads_nothing(pair, one_thread, case,
+                                                use_pallas):
+    """After one call on a cleared cache, dense_grid_sdf makes no tensor
+    of a host array (its plans, indices and resize matrices come from
+    ``ops/consts.py``), and its grid is bit-identical to that first
+    call's: R 16 (hoisted variants and coarse term) and R 32 from the
+    16^3 features (scales of 8^3 and below projected, the coarse term
+    inside the slab loop), under each head."""
+    _, _, _, tm, tenc = pair
+    kw = dict(UPLOAD_CASES[case])
+    res = kw.pop('vox_res')
+
+    def call():
+        return dense_grid_sdf(tm.sdf_decoder, tenc['vox_feat'],
+                              tenc['feat_l2'], tenc['trans_mat'], res,
+                              compute_dtype=torch.float32,
+                              use_pallas=use_pallas, **kw)
+
+    consts.CONSTS.clear()
+    first = call()
+    with numpy_uploads() as uploads:
+        second = call()
+    assert uploads == [] and torch.equal(second, first)
+
+
+def test_constants_key_on_the_card_index_and_the_dtype(monkeypatch):
+    """``cuda`` resolves to the current card's index (so ``cuda`` and
+    ``cuda:0`` share an entry and ``cuda:1`` does not); one key in two
+    dtypes makes two entries, a repeat call returns the same tensor
+    without building it again, and the cache drops its least recently used
+    entry past its bound."""
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
+    assert consts.resolve_device('cuda') == consts.resolve_device('cuda:0') \
+        == torch.device('cuda', 0) != consts.resolve_device('cuda:1')
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 1)
+    assert consts.resolve_device('cuda') == torch.device('cuda', 1)
+    assert consts.resolve_device('cpu') == torch.device('cpu')
+    cache = consts.ConstCache(max_entries=2)
+    made = []
+
+    def make(key):
+        made.append(key)
+        return np.arange(4, dtype=np.float32) + len(made)
+
+    a = cache.get('a', lambda: make('a'), 'cpu', torch.float32)
+    a64 = cache.get('a', lambda: make('a'), 'cpu', torch.float64)
+    assert (a.dtype, a64.dtype, made) == (torch.float32, torch.float64,
+                                          ['a', 'a'])
+    assert cache.get('a', lambda: make('a'), 'cpu', torch.float32) is a
+    cache.get('b', lambda: make('b'), 'cpu')
+    assert len(cache) == 2 and made == ['a', 'a', 'b']
+    assert cache.get('a', lambda: make('a'), 'cpu', torch.float32) is a
+    cache.get('a', lambda: make('a'), 'cpu', torch.float64)
+    assert made == ['a', 'a', 'b', 'a']  # the f64 entry had been dropped

@@ -26,6 +26,7 @@ from list_tpu_torch.config import default_config
 from list_tpu_torch.data import SyntheticSDFDataset, collate
 from list_tpu_torch.models import LIST
 from list_tpu_torch.models.norm import BatchNorm, checkpoint
+from list_tpu_torch.ops import consts
 from list_tpu_torch.ops.losses import occupancy_loss, sdf_loss
 from list_tpu_torch.train import LISTExecutor, make_optimizer, total_loss
 
@@ -502,6 +503,43 @@ def test_train_multi_and_frozen_prefixes(setup):
             assert moved == ('running' in k), k
     assert not torch.equal(after['sdf_decoder.fc_0.weight'],
                            before['sdf_decoder.fc_0.weight'])
+
+
+def test_constants_made_in_inference_mode_serve_a_train_step(setup):
+    """The device constants (``ops/consts.py``) that an inference-mode
+    pass makes first -- the resize matrices of the perceptual maps and the
+    displacement table, through ``encode`` and ``decode_sdf`` -- are
+    ordinary tensors, and a train step (remat, 2 query chunks) that then
+    reads them runs, adds no entry, and gives the gradients of the same
+    step on a cleared cache bit for bit (both on one torch thread, beside
+    the other test workers)."""
+    cfg, batch, _, variables = setup
+
+    def grads():
+        tm = LIST(**TINY, remat=True, train_query_chunks=2)
+        load_flax_variables(tm, variables)
+        return _port_step(LISTExecutor(cfg, tm, device='cpu'), batch)[1]
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        consts.CONSTS.clear()
+        want = grads()
+        consts.CONSTS.clear()
+        tm = LIST(**TINY)
+        load_flax_variables(tm, variables)
+        with torch.inference_mode():
+            enc = tm.eval().encode(torch.as_tensor(batch['rgb_image'][:1]))
+            tm.decode_sdf(torch.as_tensor(batch['points'][:1]), enc)
+        made = list(consts.CONSTS._entries.values())
+        assert made and not any(t.is_inference() for t in made)
+        got = grads()
+    finally:
+        torch.set_num_threads(threads)
+    assert len(consts.CONSTS) == len(made)
+    for k, g in want.items():
+        assert (got[k] is None) == (g is None), k
+        assert g is None or np.array_equal(got[k], g), k
 
 
 # ---- --checkify -----------------------------------------------------------------
