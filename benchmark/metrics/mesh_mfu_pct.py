@@ -1,0 +1,14 @@
+"""Model FLOPs of a mesh (``counts.mesh_flops``: the encoder and the
+decoder MLP over every grid query, from the configuration's shapes) times
+the traced run's meshes a second, as a share of the card's bf16 peak."""
+
+from benchmark import counts
+from benchmark.metrics._common import card_peaks
+
+
+def read(record):
+    pk, rate = card_peaks(record), record.get('meshes_per_s')
+    if pk is None or not rate:
+        return None
+    return 100.0 * counts.mesh_flops(record['cfg'], record['resolution']) \
+        * rate / pk['bf16_flops']
