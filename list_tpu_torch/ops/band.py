@@ -28,10 +28,12 @@ shape i while the main stream already runs shape i + 1.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
+
+from list_tpu_torch.utils.spans import DeviceSpans, count, span
 
 
 def band_cap(n_cells: int, frac: float = 0.125) -> int:
@@ -155,41 +157,6 @@ def band_decode(buf: np.ndarray, resolution: int,
     return rec
 
 
-class DeviceSpans:
-    """CUDA events of one predict call on the card: its start, the end of
-    its encode, and the end of each image's decode (``mark``).
-    ``resolve`` gives ``encode_s`` (start to the encode's end) and
-    ``decode_s`` (the encode's end to the last decode's end: the sum of
-    the call's decodes) in seconds, once the last event has completed,
-    and writes them into ``timings`` (the executor's)."""
-
-    def __init__(self, device: torch.device, timings: Dict[str, float]):
-        self.device = device
-        self.timings = timings
-        self.events: List[torch.cuda.Event] = []
-        self._times: Optional[Dict[str, float]] = None
-
-    def mark(self) -> torch.cuda.Event:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record(torch.cuda.current_stream(self.device))
-        self.events.append(ev)
-        return ev
-
-    def resolve(self, wait: bool = True) -> Optional[Dict[str, float]]:
-        """The call's times (None when ``wait`` is False and its last
-        decode is still running)."""
-        if self._times is None:
-            last = self.events[-1]
-            if not wait and not last.query():
-                return None
-            last.synchronize()
-            start, encoded = self.events[:2]
-            self._times = dict(encode_s=start.elapsed_time(encoded) / 1e3,
-                               decode_s=encoded.elapsed_time(last) / 1e3)
-            self.timings.update(self._times)
-        return self._times
-
-
 def mark_ready(result, spans: DeviceSpans):
     """Record the event after ``result``'s last kernel (a wire grid or a
     ``BandGrid``) and attach it and the call's ``spans`` to it."""
@@ -205,7 +172,8 @@ def _to_host(t: torch.Tensor, ready=None) -> torch.Tensor:
     ``t`` is complete; without one, on the work queued so far on ``t``'s
     device), into pinned memory, and only that stream is synchronized;
     ``t`` is recorded on the stream so that the caching allocator does not
-    hand its memory out before the copy has read it."""
+    hand its memory out before the copy has read it.  The host's wait on
+    that stream (on ``ready``, then the copy) is the span ``fetch.wait``."""
     if t.device.type != 'cuda':
         return t
     side = torch.cuda.Stream(device=t.device)
@@ -217,7 +185,8 @@ def _to_host(t: torch.Tensor, ready=None) -> torch.Tensor:
         t.record_stream(side)
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
-    side.synchronize()
+    with span('fetch.wait'):
+        side.synchronize()
     return host
 
 
@@ -241,9 +210,13 @@ class BandGrid:
         self.wire_dtype = wire_dtype
 
     def to_numpy(self) -> np.ndarray:
+        """The host grid; counts ``band.fetches``, and ``band.fallbacks``
+        when the band overflowed and the full grid is fetched."""
+        count('band.fetches')
         rec = band_decode(band_to_numpy(self.band, self.ready),
                           self.resolution, self.wire_dtype)
         if rec is None:  # band overflow: full fetch (correct, just slower)
+            count('band.fallbacks')
             return _grid_f32(self.grid, self.ready)
         return rec
 
@@ -258,13 +231,17 @@ def fetch_grid_f32(pred_values) -> np.ndarray:
     """Device -> host fetch + f32 upcast for any dense-predict result
     (BandGrid, tensor or array); the one place the sweep's fetch workers
     call.  A result with events also resolves its call's times when that
-    call's last decode is done."""
-    if isinstance(pred_values, BandGrid):
-        out = pred_values.to_numpy()
-    elif isinstance(pred_values, torch.Tensor):
-        out = _grid_f32(pred_values, getattr(pred_values, 'ready', None))
-    else:
-        return np.asarray(pred_values).astype(np.float32)
+    call's last decode is done.  The fetch is the span ``request.fetch``,
+    a child of the result's ``request_span`` (its call's
+    ``request.launch``) where it has one."""
+    with span('request.fetch',
+              parent=getattr(pred_values, 'request_span', None)):
+        if isinstance(pred_values, BandGrid):
+            out = pred_values.to_numpy()
+        elif isinstance(pred_values, torch.Tensor):
+            out = _grid_f32(pred_values, getattr(pred_values, 'ready', None))
+        else:
+            return np.asarray(pred_values).astype(np.float32)
     spans = getattr(pred_values, 'spans', None)
     if spans is not None:
         spans.resolve(wait=False)

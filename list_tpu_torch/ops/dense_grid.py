@@ -46,6 +46,7 @@ from list_tpu_torch.ops.cuda.fused_fc0 import (fused_fc0_mlp,
                                                fused_stack_head,
                                                fused_stack_head_plain)
 from list_tpu_torch.ops.sampling import resize_bilinear_align_corners
+from list_tpu_torch.utils.spans import span
 
 # taps in the reference displacement order d=0..6: (x_shift_sign, (sy, sz))
 TAPS = ((0, (0, 0)), (0, (0, -1)), (0, (0, 1)), (0, (-1, 0)),
@@ -228,6 +229,13 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
     the whole grid once, cast to the compute dtype.  ``use_pallas`` picks
     the head (module docstring): 0 and 2 take the structured parts, 1 the
     per-scale stacks.
+
+    Spans (``utils/spans.py``, with events on the features' device):
+    ``decode.percep``, the perceptual maps' resize and fc_0 projection,
+    then in each slab the pixel projection, the 4-corner gather and the
+    bilinear; ``decode.voxel``, the groups' z/y variants, the coarse term,
+    then in each slab the x-lerps that build the parts.  The head is
+    neither.
     """
     R = vox_res
     S = R if slab is None else int(slab)
@@ -288,102 +296,106 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
     w1_xyz = w1[n_vox_rows + n_percep:]
 
     # perceptual maps: resize once, project through the fc_0 percep rows
-    ms = PERCEP_MAP
-    pmaps = torch.cat([resize_bilinear_align_corners(f, ms, ms)
-                       for f in feat_l2], dim=-1)  # (1, 137, 137, 1024)
-    pm512 = _mm32(pmaps.to(dt), w1_percep.to(dt)).to(dt)
-    flat_pm = pm512[0].reshape(ms * ms, -1)
+    with span('decode.percep', dev):
+        ms = PERCEP_MAP
+        pmaps = torch.cat([resize_bilinear_align_corners(f, ms, ms)
+                           for f in feat_l2], dim=-1)  # (1, 137, 137, 1024)
+        pm512 = _mm32(pmaps.to(dt), w1_percep.to(dt)).to(dt)
+        flat_pm = pm512[0].reshape(ms * ms, -1)
 
-    vols = [f[0].to(dt) for f in vox_feats]
-    n = S * R * R
-    nslabs = R // S
-    ent_vols = [vols[g[0]] if len(g) == 1
-                else torch.cat([vols[si] for si in g], dim=-1)
-                for g in groups]
-    ent_chs = [sum(channels[si] for si in g) for g in groups]
-    plan_los, plan_Ls = [], []
-    for g in groups:
-        key = (R, int(vols[g[0]].shape[0]), S, delta, bb_min, bb_max)
-        # the window starts stay host integers (_dyn_slice0's)
-        plan_los.append(_host_x_plans(*key)[0])
-        plan_Ls.append(device_const(('x_plans',) + key,
-                                    lambda key=key: _host_x_plans(*key)[1],
-                                    dev, dt))
+    with span('decode.voxel', dev):
+        vols = [f[0].to(dt) for f in vox_feats]
+        n = S * R * R
+        nslabs = R // S
+        ent_vols = [vols[g[0]] if len(g) == 1
+                    else torch.cat([vols[si] for si in g], dim=-1)
+                    for g in groups]
+        ent_chs = [sum(channels[si] for si in g) for g in groups]
+        plan_los, plan_Ls = [], []
+        for g in groups:
+            key = (R, int(vols[g[0]].shape[0]), S, delta, bb_min, bb_max)
+            # the window starts stay host integers (_dyn_slice0's)
+            plan_los.append(_host_x_plans(*key)[0])
+            plan_Ls.append(device_const(('x_plans',) + key,
+                                        lambda key=key: _host_x_plans(*key)[1],
+                                        dev, dt))
 
-    if hoist_variants is None:
-        hoist_variants = R <= 128 and S <= 16
-    hoist = bool(hoist_variants) and structured
-    ent_ident = []
-    for f in ent_vols:
-        i0, _, w = _axis_plan(R, f.shape[0], 0.0, bb_min, bb_max)
-        ent_ident.append(bool((w == 0).all() and (i0 == np.arange(R)).all()))
+        if hoist_variants is None:
+            hoist_variants = R <= 128 and S <= 16
+        hoist = bool(hoist_variants) and structured
+        ent_ident = []
+        for f in ent_vols:
+            i0, _, w = _axis_plan(R, f.shape[0], 0.0, bb_min, bb_max)
+            ent_ident.append(bool((w == 0).all()
+                                  and (i0 == np.arange(R)).all()))
 
-    def zy_variants(f, r_in):
-        dz = norm_shift(delta, r_in)
-        z0 = resample_axis(f, 2, R, 0.0, bb_min, bb_max)
-        zp = resample_axis(f, 2, R, dz, bb_min, bb_max)
-        zm = resample_axis(f, 2, R, -dz, bb_min, bb_max)
-        return {
-            (0, 0): resample_axis(z0, 1, R, 0.0, bb_min, bb_max),
-            (1, 0): resample_axis(z0, 1, R, dz, bb_min, bb_max),
-            (-1, 0): resample_axis(z0, 1, R, -dz, bb_min, bb_max),
-            (0, 1): resample_axis(zp, 1, R, 0.0, bb_min, bb_max),
-            (0, -1): resample_axis(zm, 1, R, 0.0, bb_min, bb_max),
-        }
+        def zy_variants(f, r_in):
+            dz = norm_shift(delta, r_in)
+            z0 = resample_axis(f, 2, R, 0.0, bb_min, bb_max)
+            zp = resample_axis(f, 2, R, dz, bb_min, bb_max)
+            zm = resample_axis(f, 2, R, -dz, bb_min, bb_max)
+            return {
+                (0, 0): resample_axis(z0, 1, R, 0.0, bb_min, bb_max),
+                (1, 0): resample_axis(z0, 1, R, dz, bb_min, bb_max),
+                (-1, 0): resample_axis(z0, 1, R, -dz, bb_min, bb_max),
+                (0, 1): resample_axis(zp, 1, R, 0.0, bb_min, bb_max),
+                (0, -1): resample_axis(zm, 1, R, 0.0, bb_min, bb_max),
+            }
 
-    if hoist:
-        ent_vols = [torch.cat([v[key] for (_, key) in TAPS[:5]], dim=-1)
-                    for v in (zy_variants(f, f.shape[0]) for f in ent_vols)]
+        if hoist:
+            ent_vols = [torch.cat([v[key] for (_, key) in TAPS[:5]], dim=-1)
+                        for v in (zy_variants(f, f.shape[0])
+                                  for f in ent_vols)]
 
-    # coarse-projected volumes, folded through the fc_0 tap blocks
-    proj_vols = []
-    for si in proj:
-        V = vols[si]
-        r_in = V.shape[0]
-        dz = norm_shift(delta, r_in)
+        # coarse-projected volumes, folded through the fc_0 tap blocks
+        proj_vols = []
+        for si in proj:
+            V = vols[si]
+            r_in = V.shape[0]
+            dz = norm_shift(delta, r_in)
 
-        def P(t, si=si, V=V):
-            return _mm32(V, w1v[rows(
-                ('tap', si, t),
-                lambda: _tap_w1_rows(channels, si, t))].to(dt)).to(dt)
+            def P(t, si=si, V=V):
+                return _mm32(V, w1v[rows(
+                    ('tap', si, t),
+                    lambda: _tap_w1_rows(channels, si, t))].to(dt)).to(dt)
 
-        def rz(v, s):
-            return resample_axis(v, 2, R, s, bb_min, bb_max)
+            def rz(v, s):
+                return resample_axis(v, 2, R, s, bb_min, bb_max)
 
-        def ry(v, s):
-            return resample_axis(v, 1, R, s, bb_min, bb_max)
+            def ry(v, s):
+                return resample_axis(v, 1, R, s, bb_min, bb_max)
 
-        # TAPS order: t0 center, t1 z-, t2 z+, t3 y-, t4 y+, t5 x-, t6 x+
-        Tc = rz(P(0), 0.0) + rz(P(2), dz) + rz(P(1), -dz)
-        U0 = ry(Tc, 0.0) + ry(rz(P(4), 0.0), dz) + ry(rz(P(3), 0.0), -dz)
-        Uxp = ry(rz(P(6), 0.0), 0.0)
-        Uxm = ry(rz(P(5), 0.0), 0.0)
-        proj_vols.extend(U.reshape(r_in, R * R, U.shape[-1])
-                         for U in (U0, Uxp, Uxm))
+            # TAPS order: t0 center, t1 z-, t2 z+, t3 y-, t4 y+, t5 x-, t6 x+
+            Tc = rz(P(0), 0.0) + rz(P(2), dz) + rz(P(1), -dz)
+            U0 = ry(Tc, 0.0) + ry(rz(P(4), 0.0), dz) + ry(rz(P(3), 0.0), -dz)
+            Uxp = ry(rz(P(6), 0.0), 0.0)
+            Uxm = ry(rz(P(5), 0.0), 0.0)
+            proj_vols.extend(U.reshape(r_in, R * R, U.shape[-1])
+                             for U in (U0, Uxp, Uxm))
 
-    if coarse_outside is None:
-        coarse_outside = R <= 128
-    outside = bool(proj) and coarse_outside
-    Ucat = Lcat = Cfull = None
-    if proj:
-        Ucat = torch.cat(proj_vols, dim=0)  # (Ktot, R*R, 512)
-        r_ins = tuple(int(vols[si].shape[0]) for si in proj)
+        if coarse_outside is None:
+            coarse_outside = R <= 128
+        outside = bool(proj) and coarse_outside
+        Ucat = Lcat = Cfull = None
+        if proj:
+            Ucat = torch.cat(proj_vols, dim=0)  # (Ktot, R*R, 512)
+            r_ins = tuple(int(vols[si].shape[0]) for si in proj)
 
-        def coarse_plans():
-            return np.concatenate(
-                [np.transpose(_scan_x_plans_full(R, r_in, S, delta, bb_min,
-                                                 bb_max),
-                              (0, 2, 1, 3)).reshape(nslabs, S, -1)
-                 for r_in in r_ins], axis=-1)
+            def coarse_plans():
+                return np.concatenate(
+                    [np.transpose(_scan_x_plans_full(R, r_in, S, delta, bb_min,
+                                                     bb_max),
+                                  (0, 2, 1, 3)).reshape(nslabs, S, -1)
+                     for r_in in r_ins], axis=-1)
 
-        Lcat = device_const(('coarse_x_plans', R, S, delta, bb_min, bb_max,
-                             r_ins), coarse_plans, dev, dt)
-        if outside:
-            # the x rows' coarse term once, cast to the compute dtype
-            Cfull = _mm32(Lcat[k0:k1].reshape(x1 - x0, -1),
-                          Ucat.reshape(Ucat.shape[0], -1)).to(dt)
-            Cfull = Cfull.reshape(x1 - x0, R * R, -1)
-            Ucat = None
+            Lcat = device_const(('coarse_x_plans', R, S, delta, bb_min, bb_max,
+                                 r_ins), coarse_plans, dev, dt)
+            if outside:
+                # the x rows' coarse term once, cast to the compute dtype
+                Cfull = _mm32(Lcat[k0:k1].reshape(x1 - x0, -1),
+                              Ucat.reshape(Ucat.shape[0], -1)).to(dt)
+                Cfull = Cfull.reshape(x1 - x0, R * R, -1)
+                Ucat = None
 
     w2 = decoder.fc_1.weight.t()
     w3 = decoder.fc_2.weight.t()
@@ -396,73 +408,75 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
 
     for k in range(k0, k1):
         xs = k * S
-        parts = []
-        for gi, f in enumerate(ent_vols):
-            ch = ent_chs[gi]
-            L7 = plan_Ls[gi][k]
-            r_max = L7.shape[-1]
-            if hoist:
-                sub = _dyn_slice0(f, plan_los[gi][k], r_max)
-                if ent_ident[gi]:
-                    A5 = _dyn_slice0(f, xs, S).reshape(n, 5 * ch)
+        with span('decode.voxel', dev):
+            parts = []
+            for gi, f in enumerate(ent_vols):
+                ch = ent_chs[gi]
+                L7 = plan_Ls[gi][k]
+                r_max = L7.shape[-1]
+                if hoist:
+                    sub = _dyn_slice0(f, plan_los[gi][k], r_max)
+                    if ent_ident[gi]:
+                        A5 = _dyn_slice0(f, xs, S).reshape(n, 5 * ch)
+                    else:
+                        A5 = _xlerp(L7[0], sub).to(dt).reshape(n, 5 * ch)
+                    Vx = sub[..., :ch]
                 else:
-                    A5 = _xlerp(L7[0], sub).to(dt).reshape(n, 5 * ch)
-                Vx = sub[..., :ch]
-            else:
-                r_in = f.shape[0]
-                sub = _dyn_slice0(f, plan_los[gi][k], r_max)
-                variants = zy_variants(sub, r_in)
-                if not structured:
-                    # (7, r, R, R, C): each tap's source rows; one batched
-                    # x-lerp 'tsr,tryzc->tsyzc' (f32), cast, f32 freed
-                    V7 = torch.stack([variants[key] for (_, key) in TAPS])
-                    del variants
-                    A = torch.bmm(L7.float(),
-                                  V7.reshape(7, r_max, -1).float())
-                    del V7
-                    parts.append(A.to(dt).reshape(7, n, ch))
-                    del A
-                    continue
-                Vcat = torch.cat([variants[key] for (_, key) in TAPS[:5]],
-                                 dim=-1)
-                A5 = _xlerp(L7[0], Vcat).to(dt).reshape(n, 5 * ch)
-                Vx = variants[(0, 0)]
-            Axm = _xlerp(L7[5], Vx).to(dt).reshape(n, ch)
-            Axp = _xlerp(L7[6], Vx).to(dt).reshape(n, ch)
-            parts += [A5.contiguous(), Axm, Axp]
+                    r_in = f.shape[0]
+                    sub = _dyn_slice0(f, plan_los[gi][k], r_max)
+                    variants = zy_variants(sub, r_in)
+                    if not structured:
+                        # (7, r, R, R, C): each tap's source rows; one batched
+                        # x-lerp 'tsr,tryzc->tsyzc' (f32), cast, f32 freed
+                        V7 = torch.stack([variants[key] for (_, key) in TAPS])
+                        del variants
+                        A = torch.bmm(L7.float(),
+                                      V7.reshape(7, r_max, -1).float())
+                        del V7
+                        parts.append(A.to(dt).reshape(7, n, ch))
+                        del A
+                        continue
+                    Vcat = torch.cat([variants[key] for (_, key) in TAPS[:5]],
+                                     dim=-1)
+                    A5 = _xlerp(L7[0], Vcat).to(dt).reshape(n, 5 * ch)
+                    Vx = variants[(0, 0)]
+                Axm = _xlerp(L7[5], Vx).to(dt).reshape(n, ch)
+                Axp = _xlerp(L7[6], Vx).to(dt).reshape(n, ch)
+                parts += [A5.contiguous(), Axm, Axp]
 
-        coarse = None
-        if outside:
-            coarse = Cfull[xs - x0:xs - x0 + S].reshape(n, -1)
-        elif Ucat is not None:
-            coarse = _mm32(Lcat[k], Ucat.reshape(Ucat.shape[0], -1)
-                           ).reshape(n, -1)
+            coarse = None
+            if outside:
+                coarse = Cfull[xs - x0:xs - x0 + S].reshape(n, -1)
+            elif Ucat is not None:
+                coarse = _mm32(Lcat[k], Ucat.reshape(Ucat.shape[0], -1)
+                               ).reshape(n, -1)
 
         # perceptual part from the projected 512-channel map
-        fx = ((ar_s + xs) * step + bb_min)[:, None, None].expand(S, R, R)
-        fy = (ar * step + bb_min)[None, :, None].expand(S, R, R)
-        fz = (ar * step + bb_min)[None, None, :].expand(S, R, R)
-        p0, p1, p2 = 2.0 * fz, 2.0 * fy, 2.0 * fx
-        u = p0 * t[0, 0] + p1 * t[1, 0] + p2 * t[2, 0] + t[3, 0]
-        v = p0 * t[0, 1] + p1 * t[1, 1] + p2 * t[2, 1] + t[3, 1]
-        d = p0 * t[0, 2] + p1 * t[1, 2] + p2 * t[2, 2] + t[3, 2]
-        xpix = (u / (d + 1e-8)).clamp(0.0, float(ms - 1))
-        ypix = (v / (d + 1e-8)).clamp(0.0, float(ms - 1))
-        x0i = torch.floor(xpix).long()
-        y0i = torch.floor(ypix).long()
-        x1i = (x0i + 1).clamp(max=ms - 1)
-        y1i = (y0i + 1).clamp(max=ms - 1)
-        wxf = (xpix - x0i.float()).reshape(n, 1).to(dt)
-        wyf = (ypix - y0i.float()).reshape(n, 1).to(dt)
-        idx = torch.cat([(y0i * ms + x0i).reshape(n),
-                         (y0i * ms + x1i).reshape(n),
-                         (y1i * ms + x0i).reshape(n),
-                         (y1i * ms + x1i).reshape(n)])
-        vals = flat_pm[idx].reshape(4, n, -1)
-        top = vals[0] * (1 - wxf) + vals[1] * wxf
-        bot = vals[2] * (1 - wxf) + vals[3] * wxf
-        percep = top * (1 - wyf) + bot * wyf
-        del vals, top, bot
+        with span('decode.percep', dev):
+            fx = ((ar_s + xs) * step + bb_min)[:, None, None].expand(S, R, R)
+            fy = (ar * step + bb_min)[None, :, None].expand(S, R, R)
+            fz = (ar * step + bb_min)[None, None, :].expand(S, R, R)
+            p0, p1, p2 = 2.0 * fz, 2.0 * fy, 2.0 * fx
+            u = p0 * t[0, 0] + p1 * t[1, 0] + p2 * t[2, 0] + t[3, 0]
+            v = p0 * t[0, 1] + p1 * t[1, 1] + p2 * t[2, 1] + t[3, 1]
+            d = p0 * t[0, 2] + p1 * t[1, 2] + p2 * t[2, 2] + t[3, 2]
+            xpix = (u / (d + 1e-8)).clamp(0.0, float(ms - 1))
+            ypix = (v / (d + 1e-8)).clamp(0.0, float(ms - 1))
+            x0i = torch.floor(xpix).long()
+            y0i = torch.floor(ypix).long()
+            x1i = (x0i + 1).clamp(max=ms - 1)
+            y1i = (y0i + 1).clamp(max=ms - 1)
+            wxf = (xpix - x0i.float()).reshape(n, 1).to(dt)
+            wyf = (ypix - y0i.float()).reshape(n, 1).to(dt)
+            idx = torch.cat([(y0i * ms + x0i).reshape(n),
+                             (y0i * ms + x1i).reshape(n),
+                             (y1i * ms + x0i).reshape(n),
+                             (y1i * ms + x1i).reshape(n)])
+            vals = flat_pm[idx].reshape(4, n, -1)
+            top = vals[0] * (1 - wxf) + vals[1] * wxf
+            bot = vals[2] * (1 - wxf) + vals[3] * wxf
+            percep = top * (1 - wyf) + bot * wyf
+            del vals, top, bot
 
         qxyz = torch.stack([p0, p1, p2], dim=-1).reshape(n, 3)
         tail = (w1_xyz, b1, w2, b2, w3, b3, w4, b4)

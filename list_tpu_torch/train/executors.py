@@ -49,8 +49,8 @@ import torch.distributed as dist
 
 from list_tpu_torch.device import resolve_device
 from list_tpu_torch.eval.metrics import eval_mesh, eval_pointcloud
-from list_tpu_torch.ops.band import (BandGrid, DeviceSpans, band_encode,
-                                     fetch_grid_f32, mark_ready)
+from list_tpu_torch.ops.band import (BandGrid, band_encode, fetch_grid_f32,
+                                     mark_ready)
 from list_tpu_torch.ops.dense_grid import dense_grid_slabs
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
 from list_tpu_torch.ops.losses import chamfer_loss, occupancy_loss, sdf_loss
@@ -58,6 +58,7 @@ from list_tpu_torch.parallel.mesh import shard_batch
 from list_tpu_torch.train.state import make_optimizer
 from list_tpu_torch.utils.meshing import generate_mesh
 from list_tpu_torch.utils.meshio import write_obj
+from list_tpu_torch.utils.spans import DeviceSpans, span
 
 
 def total_loss(loss_dict: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -120,6 +121,9 @@ class BaseExecutor:
     def _optimizer_step(self, losses_fn: Callable[[], Dict], t0: float):
         """One step of ``losses_fn`` (the forward and its loss dict) in
         train mode -> (None, detached losses); ``step_s`` from ``t0``.
+        Its spans (``utils/spans.py``): ``step.forward`` (the forward and
+        the losses), ``step.backward`` and, under a process group,
+        ``step.allreduce`` (the gradients' and the losses' all-reduces).
 
         Under ``--checkify`` (single steps; ``train_multi`` is unchecked,
         as in the JAX package) the forward and backward run under
@@ -140,13 +144,16 @@ class BaseExecutor:
             with (torch.autograd.detect_anomaly(
                     check_nan=not self.distributed) if self._checkify
                   else contextlib.nullcontext()):
-                losses = losses_fn()
-                total_loss(losses).backward()
-            if self.distributed:
-                self._all_reduce_grads()
+                with span('step.forward', self.device):
+                    losses = losses_fn()
+                    total = total_loss(losses)
+                with span('step.backward', self.device):
+                    total.backward()
             losses = {k: v.detach() for k, v in losses.items()}
             if self.distributed:
-                losses = self._mean_over_ranks(losses)
+                with span('step.allreduce', self.device):
+                    self._all_reduce_grads()
+                    losses = self._mean_over_ranks(losses)
             if self._checkify:
                 self._check_finite(losses)
             self.optimizer.step()
@@ -228,11 +235,14 @@ class CoarseNetExecutor(BaseExecutor):
     def train(self, batch, calc_loss: bool = True):
         """One optimizer step on a host batch dict ('rgb_image', 'pc')
         -> (None, {'chamfer_loss'})."""
-        t0 = time.perf_counter()
-        batch = self._rank_batch({k: batch[k] for k in ('rgb_image', 'pc')})
-        dev = self._to_device(batch)
-        return self._optimizer_step(lambda: {'chamfer_loss': chamfer_loss(
-            self.model(dev['rgb_image']), dev['pc'])}, t0)
+        with span('step'):
+            t0 = time.perf_counter()
+            with span('step.batch'):
+                dev = self._to_device(self._rank_batch(
+                    {k: batch[k] for k in ('rgb_image', 'pc')}))
+            return self._optimizer_step(lambda: {
+                'chamfer_loss': chamfer_loss(self.model(dev['rgb_image']),
+                                             dev['pc'])}, t0)
 
     @torch.inference_mode()
     def predict(self, rgb_image: np.ndarray) -> np.ndarray:
@@ -379,12 +389,17 @@ class LISTExecutor(BaseExecutor):
         return torch.cat([torch.cat(p).to(self.device) for p in parts])
 
     def _finish(self, grid, fetch_dtype, fetch_mode):
-        wire = torch.bfloat16 if fetch_dtype == 'bfloat16' else torch.float32
-        grid = (grid / self.sdf_scale).to(wire)
-        if fetch_mode == 'band':
-            return BandGrid(band_encode(grid), grid, self.vox_res,
-                            fetch_dtype)
-        return grid
+        """The raw grid -> the wire's: the ``sdf_scale`` divide, the wire
+        cast and in band mode ``band_encode`` (the span
+        ``request.finish``)."""
+        with span('request.finish', self.device):
+            wire = (torch.bfloat16 if fetch_dtype == 'bfloat16'
+                    else torch.float32)
+            grid = (grid / self.sdf_scale).to(wire)
+            if fetch_mode == 'band':
+                return BandGrid(band_encode(grid), grid, self.vox_res,
+                                fetch_dtype)
+            return grid
 
     @torch.inference_mode()
     def predict_grid(self, rgb_image: np.ndarray,
@@ -402,40 +417,54 @@ class LISTExecutor(BaseExecutor):
         included) from the host clock around synchronized phases; with
         ``device_out`` on the card the call returns without waiting for
         the device, its result carries the CUDA events around the encode
-        and the decode (``ops.band.DeviceSpans``), and the two times reach
-        ``timings`` when the result is fetched."""
-        fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
-        self.model.eval()
-        img = torch.as_tensor(np.asarray(rgb_image), dtype=torch.float32,
-                              device=self.device)
-        tm = (None if trans_mat is None else torch.as_tensor(
-            np.asarray(trans_mat), dtype=torch.float32, device=self.device))
-        if fast is None:
-            fast = bool(getattr(self.config, 'fast_grid', 1)) \
-                and img.shape[0] == 1
-        slab, use_pallas = self._dense_plan(len(self.decode_devices))
-        spans = self._spans(device_out)
-        t0 = time.perf_counter()
-        enc = self.model.encode(img, tm)
-        if spans is None:
+        and the decode (``utils.spans.DeviceSpans``), and the two times
+        reach ``timings`` when the result is fetched.
+
+        The call is the span ``request.launch`` (this thread's time), with
+        the children ``request.upload`` (the image's copy to the device,
+        which waits for the work queued before it), ``request.encode``,
+        the decode's phases (``ops/dense_grid.py``) and
+        ``request.finish``; a device result
+        carries it as ``request_span``, the parent of its fetch's
+        ``request.fetch``."""
+        with span('request.launch') as req:
+            fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
+            self.model.eval()
+            with span('request.upload'):
+                img = torch.as_tensor(np.asarray(rgb_image),
+                                      dtype=torch.float32, device=self.device)
+                tm = (None if trans_mat is None else torch.as_tensor(
+                    np.asarray(trans_mat), dtype=torch.float32,
+                    device=self.device))
+            if fast is None:
+                fast = bool(getattr(self.config, 'fast_grid', 1)) \
+                    and img.shape[0] == 1
+            slab, use_pallas = self._dense_plan(len(self.decode_devices))
+            spans = self._spans(device_out)
+            t0 = time.perf_counter()
+            with span('request.encode'):
+                enc = self.model.encode(img, tm)
+            if spans is None:
+                self._sync()
+            else:
+                spans.mark()
+            t1 = time.perf_counter()
+            if fast and slab is not None:
+                out = self._finish(self._decode(enc, slab, use_pallas),
+                                   fetch_dtype, fetch_mode)
+            else:
+                out = self._finish(self._chunked_decode(enc), fetch_dtype,
+                                   'grid')
+            if device_out:
+                out.request_span = req
+            if spans is not None:
+                return mark_ready(out, spans)
+            if not device_out:
+                out = fetch_grid_f32(out)
             self._sync()
-        else:
-            spans.mark()
-        t1 = time.perf_counter()
-        if fast and slab is not None:
-            out = self._finish(self._decode(enc, slab, use_pallas),
-                               fetch_dtype, fetch_mode)
-        else:
-            out = self._finish(self._chunked_decode(enc), fetch_dtype,
-                               'grid')
-        if spans is not None:
-            return mark_ready(out, spans)
-        if not device_out:
-            out = fetch_grid_f32(out)
-        self._sync()
-        self.timings.update(encode_s=t1 - t0,
-                            decode_s=time.perf_counter() - t1)
-        return out
+            self.timings.update(encode_s=t1 - t0,
+                                decode_s=time.perf_counter() - t1)
+            return out
 
     def _spans(self, device_out: bool) -> Optional[DeviceSpans]:
         """Under ``device_out`` on the card: the call's CUDA events, its
@@ -539,33 +568,34 @@ class LISTExecutor(BaseExecutor):
         target is f32, as the occupancy loss computes in f32 (a soft f32
         target goes through f32 or f64 parameters' dtype exactly).  The
         batch's upload (``_to_device``) and the closing synchronization
-        are the step's only waits on the card."""
-        keep = self._rank_batch(self._train_keys(batch))
-        t0 = time.perf_counter()
-        dev = self._to_device(keep)
-        occ_gt = dev.pop('occ').float()  # uint8, or f32 through the dtype
+        are the step's only waits on the card.  The call is the span
+        ``step``, the batch's host work (``_rank_batch``, ``_train_keys``,
+        ``_to_device``) its child ``step.batch``."""
+        with span('step'):
+            with span('step.batch'):
+                keep = self._rank_batch(self._train_keys(batch))
+                t0 = time.perf_counter()
+                dev = self._to_device(keep)
+                # uint8, or f32 through the dtype
+                occ_gt = dev.pop('occ').float()
 
-        def losses():
-            pred = self.model(dev['rgb_image'], dev['points'],
-                              dev.get('transmat'))
-            return self.calc_loss(pred, (occ_gt, dev['values']))
+            def losses():
+                pred = self.model(dev['rgb_image'], dev['points'],
+                                  dev.get('transmat'))
+                return self.calc_loss(pred, (occ_gt, dev['values']))
 
-        return self._optimizer_step(losses, t0)
+            return self._optimizer_step(losses, t0)
 
     def test(self, batch, eval_pred: bool = False):
         img = batch['rgb_image']
         mesh_gt = batch.get('gt_mesh')
         pred_values = self.predict_grid(img, batch.get('transmat'))
-        t0 = time.perf_counter()
         pred_mesh = generate_mesh(pred_values, self.bb_min, self.bb_max,
                                   as_trimesh_obj=True,
                                   renorm=getattr(self.config, 'mesh_renorm',
                                                  'reference'))
-        t1 = time.perf_counter()
         eval_score = (self.eval(pred_mesh, mesh_gt)
                       if eval_pred and mesh_gt is not None else {})
-        self.timings.update(mesh_s=t1 - t0,
-                            eval_s=time.perf_counter() - t1)
         return [pred_mesh, pred_values], eval_score
 
     def eval(self, pred, gt) -> Dict[str, float]:

@@ -19,22 +19,26 @@ import numpy as np
 
 from list_tpu_torch import native
 from list_tpu_torch.utils.meshio import Mesh
+from list_tpu_torch.utils.spans import span
 
 
 def generate_mesh(gridvalues: np.ndarray, bb_min: float, bb_max: float,
                   threshold: float = 0.0, as_trimesh_obj: bool = False,
                   renorm: str = 'reference'
                   ) -> Union[Mesh, Tuple[np.ndarray, np.ndarray]]:
-    vertices, triangles = native.marching_cubes(-1.0 * gridvalues, threshold)
-
-    if len(vertices) > 10:
-        if renorm == 'reference':
-            # quirky global-scalar renorm (utils.py:176-177)
-            vertices = (vertices - vertices.min()) / vertices.max()
-            vertices = vertices * (bb_max - bb_min) + bb_min
-        else:
-            res = gridvalues.shape[0]
-            vertices = vertices / (res - 1) * (bb_max - bb_min) + bb_min
+    """The mesh of ``gridvalues`` (module docstring); the span
+    ``mesh.generate``."""
+    with span('mesh.generate'):
+        vertices, triangles = native.marching_cubes(-1.0 * gridvalues,
+                                                    threshold)
+        if len(vertices) > 10:
+            if renorm == 'reference':
+                # quirky global-scalar renorm (utils.py:176-177)
+                vertices = (vertices - vertices.min()) / vertices.max()
+                vertices = vertices * (bb_max - bb_min) + bb_min
+            else:
+                res = gridvalues.shape[0]
+                vertices = vertices / (res - 1) * (bb_max - bb_min) + bb_min
     if as_trimesh_obj:
         return Mesh(vertices, triangles)
     return vertices, triangles
