@@ -64,7 +64,8 @@ from list_tpu_torch.models.list_model import (DEFAULT_IM_ENC_LAYERS,
                                               vox_channels)
 from list_tpu_torch.ops.band import (BandGrid, band_decode, band_encode,
                                      band_to_numpy, fetch_grid_f32)
-from list_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+from list_tpu_torch.ops.cuda import (batch_norm, launch_counts,
+                                     reset_launch_counts)
 from list_tpu_torch.ops.dense_grid import dense_grid_sdf
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
 from list_tpu_torch.train import LISTExecutor
@@ -173,32 +174,47 @@ def full_res_convs(layers: Sequence[int] = DEFAULT_IM_ENC_LAYERS) -> int:
     return min(n, 3) + (2 if n > 3 else 0)
 
 
+def routed_norms(layers: Sequence[int], batch: int, R: int) -> list:
+    """The channels of each VoxelEncoder2 BatchNorm that ``routes`` sends
+    to the kernels at ``batch`` and vox_res R: bn_0 and bn_1 at R^3, then
+    bn_l (l > 2) at (R / 2^(l - 3))^3."""
+    return [layers[l + 1] for l in range(len(layers) - 1) if l != 2
+            and batch_norm.routes(5, torch.float32, layers[l + 1],
+                                  batch * (R >> max(0, l - 3)) ** 3)]
+
+
 def launches(on_card: bool, k2: int = 0, dx: int = 0, dk: int = 0,
-             k1: int = 0, k4: int = 0) -> Dict[str, int]:
+             k1: int = 0, k4: int = 0, bn: int = 0, bn_bwd: int = 0
+             ) -> Dict[str, int]:
     """The launch counts a path must give: these on the card, none on the
     CPU (the wrappers take their plain versions there)."""
     n = dict(conv3x3x3=k2, conv3x3x3_dx=dx, conv3x3x3_dk=dk,
-             fused_stack_head=k1, fused_fc0_mlp=k4)
+             fused_stack_head=k1, fused_fc0_mlp=k4, batch_norm=bn,
+             batch_norm_bwd=bn_bwd)
     return n if on_card else {k: 0 for k in n}
 
 
-def step_launches(on_card: bool, layers: Sequence[int], remat: bool
-                  ) -> Dict[str, int]:
+def step_launches(on_card: bool, layers: Sequence[int], remat: bool,
+                  batch: int, R: int) -> Dict[str, int]:
     """One LISTExecutor.train step: the encoder's full-resolution convs
     forward (again under remat), dx of each but conv_0 (its input is the
-    occupancy grid) and dk of each."""
+    occupancy grid) and dk of each; the routed BatchNorms' backward, and
+    the forward (again under remat) of those the kernels normalize."""
     n = full_res_convs(layers)
+    norms = routed_norms(layers, batch, R)
+    fwd = sum(batch_norm.normalizes(c) for c in norms)
     return launches(on_card, k2=n * (2 if remat else 1) + n - 1, dx=n - 1,
-                    dk=n)
+                    dk=n, bn=fwd * (2 if remat else 1), bn_bwd=len(norms))
 
 
 def decode_launches(on_card: bool, R: int, slab: int, head: int,
-                    k2: int = 0) -> Dict[str, int]:
+                    k2: int = 0, bn: int = 0) -> Dict[str, int]:
     """A dense R^3 decode in slabs of ``slab`` with head ``head`` (1: K4,
-    2: K1, 0: the plain head), beside ``k2`` encoder convolutions."""
+    2: K1, 0: the plain head), beside ``k2`` encoder convolutions and
+    ``bn`` eval BatchNorms."""
     per = R // slab
     return launches(on_card, k2=k2, k1=per if head == 2 else 0,
-                    k4=per if head == 1 else 0)
+                    k4=per if head == 1 else 0, bn=bn)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -236,7 +252,7 @@ def train_phase(dev, seed: int, s: Sizes, rng, x: dict) -> None:
     torch.manual_seed(seed)
     ex = LISTExecutor(cfg, LIST.from_config(cfg), device=dev)
     layers = tuple(cfg.im_enc_layers)
-    per_step = step_launches(on_card, layers, bool(cfg.remat))
+    per_step = step_launches(on_card, layers, bool(cfg.remat), b, R)
 
     t0 = time.perf_counter()
     ex.train(batch)
@@ -309,7 +325,9 @@ def mesh_phase(ex, dev, s: Sizes, rng, pool, x: dict):
     img = rng.rand(1, s.img_res, s.img_res, 3).astype(np.float32)
     slab, head = ex._dense_plan()
     convs = full_res_convs(ex.model.im_enc_layers)
-    per_mesh = decode_launches(on_card, R, slab, head, k2=convs)
+    per_mesh = decode_launches(
+        on_card, R, slab, head, k2=convs,
+        bn=len(routed_norms(ex.model.im_enc_layers, 1, R)))
 
     t0 = time.perf_counter()
     x['fc_out_bias_shift'] = _shift_to_surface(ex, img)
@@ -368,7 +386,8 @@ def mesh_phase(ex, dev, s: Sizes, rng, pool, x: dict):
     one = decode_launches(on_card, R, slab, head)
     check_launches(launch_counts(), launches(
         on_card, k2=s.batch_reps * convs, k1=one['fused_stack_head'] * n,
-        k4=one['fused_fc0_mlp'] * n), 'batched sweep')
+        k4=one['fused_fc0_mlp'] * n, bn=s.batch_reps * len(routed_norms(
+            ex.model.im_enc_layers, s.batch_images, R))), 'batched sweep')
     del grids
 
     x.update(n_queries=R ** 3, fetch_mode=ex.config.fetch_mode,

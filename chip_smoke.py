@@ -18,7 +18,12 @@ Run from the repository root.  Phases (any failure exits non-zero):
    staging path per scale printed, and K4 also held on the same inputs
    one bf16 into their buffers and cut to a ragged n, off its vector
    paths); and the differentiable conv3x3x3's dx and dk against autograd
-   through the plain version.
+   through the plain version.  The BatchNorm path
+   (``ops/cuda/batch_norm.py``) at the voxel encoder's shapes that it
+   takes (1, 16 and 32 channels): the training forward and backward at
+   batch 8 and the eval forward at batch 1 against float64 within a few
+   f32 round-offs, bit-identical reruns, launches counted, timed beside
+   cuDNN and ``torch.var_mean`` + ``F.batch_norm``.
 4. Inference path: the full-width default LIST (vox_res 128) with seeded
    random weights serves ``--requests`` seeded 224x224 images through
    ``LISTExecutor.test(..., eval_pred=True)`` (dense 128^3 SDF -> marching
@@ -118,8 +123,9 @@ Run from the repository root.  Phases (any failure exits non-zero):
    and merge the sharded sweep's meshes, and ``predict_grid`` with the
    decode split over two row ranges on the card must give the unsplit
    grid with 2 K1 launches (each timed).
-11. Prints one JSON line of kernel numbers (K2 once per path: per request
-    at batch 1, and per train step at batch 8; K4 per mesh of the sweep;
+11. Prints one JSON line of kernel numbers (K2 and BatchNorm once per
+    path: per request at batch 1, and per train step at batch 8; K4 per
+    mesh of the sweep;
     ``driver_launches`` and ``pix3d_launches``: the warm-started LIST
     epoch's counts on the synthetic and the Pix3D data), then the device
     line.
@@ -326,6 +332,176 @@ def grad_fn_phase(dev, stencil3d, batch=2):
     return rows
 
 
+# The BatchNorm kernels' main-path shapes (C, R, BatchNorms of that shape):
+# the voxel encoder's bn_0 and bn_1, bn_3 and bn_4, at batch 8 in a train
+# step (each forward twice under remat, one backward) and at batch 1 in a
+# request (eval, once each)
+BN_SHAPES = ((1, 128, 2), (16, 128, 1), (32, 64, 1))
+BN_U = 2.0 ** -24  # f32 round-off
+# limits in BN_U * max|float64|: the kernels' forward 16 and dx 64
+# (tests/test_torch_cuda.py); cuDNN's training forward (above one channel)
+# 64, where it reads about 20 on these inputs (PERF.md).  dweight and
+# dbias are each channel's sum of M terms, which may cancel to near 0:
+# theirs in BN_U * the channel's sum of |terms|, limit 1
+BN_LIMITS = dict(kernel=16, cudnn=64, backward=64, sums=1)
+
+
+def _bn_inputs(shape, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    return (3.0 + torch.randn(shape, device=dev, generator=g),
+            1.0 + 0.5 * torch.randn(c, device=dev, generator=g),
+            torch.randn(c, device=dev, generator=g),
+            torch.randn(shape, device=dev, generator=g))
+
+
+def _launched(before) -> dict:
+    """The BatchNorm launches since ``before`` (a ``launch_counts()``)."""
+    after = launch_counts()
+    return {k: after[k] - before[k] for k in ('batch_norm', 'batch_norm_bwd')}
+
+
+def _bn_ulps(pairs) -> dict:
+    return {k: float((got.double() - ref).abs().max()
+                     / (BN_U * ref.abs().max())) for k, got, ref in pairs}
+
+
+def bn_phase(dev, batch_norm, reps=10):
+    """The BatchNorm path on the card at its main-path shapes (BN_SHAPES):
+    the training forward and backward as ``BatchNorm`` runs them
+    (``batch_norm_train`` and autograd) at batch 8, and the eval forward at
+    batch 1, against the plain versions in float64 within BN_LIMITS; two
+    runs bit-identical; the launches of each call counted.  Timed beside
+    cuDNN (``F.batch_norm`` and its backward), the module's training
+    forward before the kernels (``torch.var_mean`` for the running
+    statistics, then ``F.batch_norm``) and the plain versions; a train
+    row's times are a BatchNorm's in one step (two forwards, one
+    backward; ``var_mean_ms``: that forward, cuDNN's recompute and cuDNN's
+    backward).  Returns the train step's and the request's totals."""
+    eps = batch_norm.EPS
+    train, evals = [], []
+    for c, r, calls in BN_SHAPES:
+        shape = (8, c, r, r, r)
+        x, w, b, dy = _bn_inputs(shape, dev, 17 + c)
+        runs = []
+        before = launch_counts()
+        for _ in range(2):
+            xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+            y, mean, var = batch_norm.batch_norm_train(xr, wr, br)
+            y.backward(dy)
+            runs.append((y.detach(), mean, var, xr.grad, wr.grad, br.grad))
+            del xr, wr, br, y
+        counts = _launched(before)
+        same = all(torch.equal(p, q) for p, q in zip(*runs))
+        x64, w64, b64, dy64 = (t.double() for t in (x, w, b, dy))
+        y64, m64, v64 = batch_norm.batch_norm_train_plain(x64, w64, b64)
+        dx64, dw64, db64 = batch_norm.batch_norm_backward_plain(
+            x64, dy64, w64, m64, torch.rsqrt(v64 + eps))
+        fwd_limit = BN_LIMITS['kernel' if batch_norm.normalizes(c)
+                              else 'cudnn']
+        ulps = _bn_ulps(zip(('y', 'mean', 'var', 'dx'), runs[0],
+                            (y64, m64, v64, dx64)))
+        view = (1, c, 1, 1, 1)
+        terms = dict(dweight=(dy64 * (x64 - m64.view(view))).abs().sum(
+            [0, 2, 3, 4]) * torch.rsqrt(v64 + eps), dbias=dy64.abs().sum(
+                [0, 2, 3, 4]))
+        for k, got, ref in (('dweight', runs[0][4], dw64),
+                            ('dbias', runs[0][5], db64)):
+            ulps[k] = float(((got.double() - ref).abs()
+                             / (BN_U * terms[k])).max())
+        err = max(float((g.double() - ref).abs().max()) for g, ref in zip(
+            runs[0], (y64, m64, v64, dx64, dw64, db64)))
+        del runs, x64, dy64, y64, dx64, terms
+        torch.cuda.empty_cache()
+        limit = dict(y=fwd_limit, mean=fwd_limit, var=fwd_limit,
+                     dx=BN_LIMITS['backward'], dweight=BN_LIMITS['sums'],
+                     dbias=BN_LIMITS['sums'])
+        ok = same and counts['batch_norm'] == 2 * batch_norm.normalizes(c) \
+            and counts['batch_norm_bwd'] == 2 and all(
+                v <= limit[k] for k, v in ulps.items())
+        dims = [0, 2, 3, 4]
+        _, mean, _, rstd = batch_norm._forward_train(x, w, b)
+        xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+        y_cudnn = F.batch_norm(xr, None, None, wr, br, True, 0.0, eps)
+
+        def cudnn_fwd():
+            return F.batch_norm(x, None, None, w, b, True, 0.0, eps)
+
+        def var_mean_fwd():
+            torch.var_mean(x, dim=dims, correction=0)
+            return cudnn_fwd()
+
+        with torch.no_grad():
+            fwd = time_ms(lambda: batch_norm.batch_norm_train(x, w, b), reps,
+                          device=dev)
+            lib_fwd = time_ms(cudnn_fwd, reps, device=dev)
+            var_mean = time_ms(var_mean_fwd, reps, device=dev)
+            plain_fwd = time_ms(lambda: batch_norm.batch_norm_train_plain(
+                x, w, b), 3, 1, device=dev)
+        bwd = time_ms(lambda: batch_norm._backward(x, dy, w, mean, rstd,
+                                                   True), reps, device=dev)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            y_cudnn, (xr, wr, br), dy, retain_graph=True), reps, device=dev)
+        plain_bwd = time_ms(lambda: batch_norm.batch_norm_backward_plain(
+            x, dy, w, mean, rstd), 3, 1, device=dev)
+        bound = batch_norm.bound_ms(shape)
+        row = dict(shape=f'{c} ch @8x{r}^3', calls=calls,
+                   forward='kernels' if batch_norm.normalizes(c)
+                   else 'cuDNN', launches=counts, bit_identical_rerun=same,
+                   ulps=ulps, max_abs_err=err, ok=ok,
+                   forward_ms=fwd, backward_ms=bwd, cudnn_forward_ms=lib_fwd,
+                   cudnn_backward_ms=lib_bwd, var_mean_forward_ms=var_mean,
+                   ms=2 * fwd + bwd, library_ms=2 * lib_fwd + lib_bwd,
+                   var_mean_ms=var_mean + lib_fwd + lib_bwd,
+                   plain_ms=2 * plain_fwd + plain_bwd,
+                   bound_ms=2 * bound['train'] + bound['backward'],
+                   bound_by='bytes')
+        print('kernel batch_norm train', json.dumps(row), flush=True)
+        train.append(row)
+        del x, dy, xr, y_cudnn
+        torch.cuda.empty_cache()
+
+        shape = (1, c, r, r, r)
+        x, w, b, _ = _bn_inputs(shape, dev, 19 + c)
+        rm = 3.0 + 0.1 * torch.randn(c, device=dev)
+        rv = 0.5 + torch.rand(c, device=dev)
+        with torch.inference_mode():
+            before = launch_counts()
+            ys = [batch_norm.batch_norm_eval(x, rm, rv, w, b)
+                  for _ in range(2)]
+            counts = _launched(before)
+            ref = batch_norm.batch_norm_eval_plain(
+                *(t.double() for t in (x, rm, rv, w, b)))
+            ulps = _bn_ulps([('y', ys[0], ref)])
+            same = bool(torch.equal(*ys))
+            row = dict(shape=f'{c} ch @1x{r}^3', calls=calls,
+                       launches=counts, bit_identical_rerun=same, ulps=ulps,
+                       max_abs_err=float((ys[0].double() - ref).abs().max()),
+                       ok=same and counts['batch_norm'] == 2
+                       and ulps['y'] <= BN_LIMITS['kernel'],
+                       ms=time_ms(lambda: batch_norm.batch_norm_eval(
+                           x, rm, rv, w, b), reps, device=dev),
+                       library_ms=time_ms(lambda: F.batch_norm(
+                           x, rm, rv, w, b, False, 0.0, eps), reps,
+                           device=dev),
+                       plain_ms=time_ms(
+                           lambda: batch_norm.batch_norm_eval_plain(
+                               x, rm, rv, w, b), 3, 1, device=dev),
+                       bound_ms=batch_norm.bound_ms(shape)['eval'],
+                       bound_by='bytes')
+        print('kernel batch_norm eval', json.dumps(row), flush=True)
+        evals.append(row)
+        del x, ys, ref
+        torch.cuda.empty_cache()
+    if not all(r['ok'] for r in train + evals):
+        fail('the BatchNorm path disagrees with its plain version, is not '
+             'deterministic or launched other than expected')
+    step = _total(train, 'train step (batch 8; 4 forward launches of the '
+                  'one-channel kernels, 4 backward)')
+    step['var_mean_ms'] = sum(r['var_mean_ms'] * r['calls'] for r in train)
+    return step, _total(evals, 'request (4 launches, batch 1)')
+
+
 def _uniform(g, dev):
     """Seeded uniform(-scale, scale) tensors on the card."""
     def u(*shape, scale=1.0, dt=torch.float32):
@@ -495,15 +671,24 @@ def mlp_cases(fused_fc0, args, n):
 # K2 per train step: 5 forward + the same 5 recomputed under remat + dx of
 # the four convolutions whose input needs a gradient (not conv_0's: its
 # input is the occupancy grid); K3: one dk per convolution.
+# the voxel encoder's BatchNorms on the kernels at 128^3, at any batch
+# (bn_0, bn_1, bn_3, bn_4; bn_5 has 64 channels), and those of them whose
+# training forward runs the kernels (one channel: bn_0, bn_1)
+NORMS, NORMS_FWD = 4, 2
 STEP_LAUNCHES = dict(conv3x3x3=14, conv3x3x3_dx=4, conv3x3x3_dk=5,
-                     fused_stack_head=0, fused_fc0_mlp=0)
+                     fused_stack_head=0, fused_fc0_mlp=0,
+                     batch_norm=2 * NORMS_FWD, batch_norm_bwd=NORMS)
+# a step under a process group of more than one rank: BatchNorm takes the
+# global batch's moments in plain PyTorch (models/norm.py)
+GROUP_STEP_LAUNCHES = dict(STEP_LAUNCHES, batch_norm=0, batch_norm_bwd=0)
 TRAIN_STEPS = 3  # timed, after one warm step
 
 
-def train_path(ex, batches, stencil3d, fused_fc0):
+def train_path(ex, batches, stencil3d, fused_fc0, want=None):
     """One warm step, then ``len(batches) - 1`` timed LISTExecutor.train
     steps; the launch counters are set to 0 after the warm step and
-    checked after every step."""
+    checked after every step against ``want`` (STEP_LAUNCHES)."""
+    want = want or STEP_LAUNCHES
     ex.train(batches[0])
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -521,9 +706,9 @@ def train_path(ex, batches, stencil3d, fused_fc0):
         steps.append(rec)
         if not all(np.isfinite(v) for v in rec['losses'].values()):
             fail(f'train step {i}: a loss is not finite')
-        if rec['launches'] != STEP_LAUNCHES:
+        if rec['launches'] != want:
             fail(f'train step {i}: launches {rec["launches"]}, expected '
-                 f'{STEP_LAUNCHES}')
+                 f'{want}')
     total = launch_counts()
     print('train path launches', json.dumps(total), flush=True)
     return steps, total
@@ -1051,8 +1236,9 @@ def sweep_phase(args, stencil3d, fused_fc0):
     torch.cuda.empty_cache()
 
     first = sweep_run(cfg, '--use_pallas 1', stencil3d, fused_fc0)
-    want = dict(conv3x3x3=5 * SWEEP_SHAPES, conv3x3x3_dx=0, conv3x3x3_dk=0,
-                fused_stack_head=0, fused_fc0_mlp=2 * SWEEP_SHAPES)
+    want = dict(NO_LAUNCHES, conv3x3x3=5 * SWEEP_SHAPES,
+                fused_fc0_mlp=2 * SWEEP_SHAPES,
+                batch_norm=NORMS * SWEEP_SHAPES)
     if first['launches'] != want or first['fresh_meshes'] != SWEEP_SHAPES:
         fail(f'sweep --use_pallas 1: launches {first["launches"]} for '
              f'{first["fresh_meshes"]} fresh meshes, expected {want}')
@@ -1064,8 +1250,9 @@ def sweep_phase(args, stencil3d, fused_fc0):
     second = sweep_run(cfg2, '--use_pallas -1 --infer_batch 2', stencil3d,
                        fused_fc0)
     groups = {i // 2 for i in SWEEP_DROPPED}
-    want = dict(conv3x3x3=5 * len(groups), conv3x3x3_dx=0, conv3x3x3_dk=0,
-                fused_stack_head=len(SWEEP_DROPPED), fused_fc0_mlp=0)
+    want = dict(NO_LAUNCHES, conv3x3x3=5 * len(groups),
+                fused_stack_head=len(SWEEP_DROPPED),
+                batch_norm=NORMS * len(groups))
     if second['launches'] != want \
             or second['fresh_meshes'] != len(SWEEP_DROPPED):
         fail(f'sweep --infer_batch 2: launches {second["launches"]} for '
@@ -1077,10 +1264,12 @@ def sweep_phase(args, stencil3d, fused_fc0):
 
 COARSE_BATCH = 16  # the README's stage-1 recipe
 NO_LAUNCHES = dict(conv3x3x3=0, conv3x3x3_dx=0, conv3x3x3_dk=0,
-                   fused_stack_head=0, fused_fc0_mlp=0)
-# a testlist shape of stage 2: one encode (K2 x5) and one dense decode (K1)
-TEST_LAUNCHES = dict(conv3x3x3=5, conv3x3x3_dx=0, conv3x3x3_dk=0,
-                     fused_stack_head=1, fused_fc0_mlp=0)
+                   fused_stack_head=0, fused_fc0_mlp=0, batch_norm=0,
+                   batch_norm_bwd=0)
+# a testlist shape of stage 2: one encode (K2 x5, the eval BatchNorm x4)
+# and one dense decode (K1)
+TEST_LAUNCHES = dict(NO_LAUNCHES, conv3x3x3=5, fused_stack_head=1,
+                     batch_norm=NORMS)
 
 
 def stage1_phase(args, stencil3d, fused_fc0):
@@ -1525,8 +1714,8 @@ def pix3d_phase(args, stencil3d, fused_fc0, card_line):
     del trained, split
     torch.cuda.empty_cache()
     sweep = sweep_run(c3, 'pix3d', stencil3d, fused_fc0, shapes=PIX3D_TEST)
-    want = dict(conv3x3x3=5 * PIX3D_TEST, conv3x3x3_dx=0, conv3x3x3_dk=0,
-                fused_stack_head=PIX3D_TEST, fused_fc0_mlp=0)
+    want = dict(NO_LAUNCHES, conv3x3x3=5 * PIX3D_TEST,
+                fused_stack_head=PIX3D_TEST, batch_norm=NORMS * PIX3D_TEST)
     if sweep['launches'] != want or sweep['fresh_meshes'] != PIX3D_TEST:
         fail(f'pix3d sweep: launches {sweep["launches"]} for '
              f'{sweep["fresh_meshes"]} fresh images, expected {want}')
@@ -1563,10 +1752,11 @@ def pix3d_phase(args, stencil3d, fused_fc0, card_line):
 DIST_WORLD = 2  # gloo ranks on the one card (NCCL refuses two on one GPU)
 DIST_STEPS = 2  # timed 2-rank train steps, after one warm step
 DIST_SHAPES = SWEEP_SHAPES // DIST_WORLD  # each rank's strided test shapes
-# a rank's sweep of its 4 fresh shapes: one encode (K2 x5) and one K1 each
-DIST_SWEEP_LAUNCHES = dict(conv3x3x3=5 * DIST_SHAPES, conv3x3x3_dx=0,
-                           conv3x3x3_dk=0, fused_stack_head=DIST_SHAPES,
-                           fused_fc0_mlp=0)
+# a rank's sweep of its 4 fresh shapes: one encode (K2 x5, the eval
+# BatchNorm x4) and one K1 each
+DIST_SWEEP_LAUNCHES = dict(NO_LAUNCHES, conv3x3x3=5 * DIST_SHAPES,
+                           fused_stack_head=DIST_SHAPES,
+                           batch_norm=NORMS * DIST_SHAPES)
 SPLIT = ('cuda:0', 'cuda:0')  # the split decode's devices on one card
 
 
@@ -1667,7 +1857,8 @@ def dist_rank(args, stencil3d, fused_fc0):
     ex = LISTExecutor(tcfg, LIST.from_config(tcfg))
     ex.init_optimizer()
     rec['train_steps'], _ = train_path(ex, [batch] * (DIST_STEPS + 1),
-                                       stencil3d, fused_fc0)
+                                       stencil3d, fused_fc0,
+                                       GROUP_STEP_LAUNCHES)
     rec['digests'] = _digests(ex)
     del ex, batch, ds
     torch.cuda.empty_cache()
@@ -1835,8 +2026,8 @@ def split_decode_check(cfg, model, img, fused_fc0, stencil3d, card_line):
                bitwise=bool(np.array_equal(got, ref)), max_abs_err=err,
                tol=tol, same_slab_ranges_bitwise=same_slab)
     print('split decode', json.dumps(rec), flush=True)
-    want = dict(conv3x3x3=5, conv3x3x3_dx=0, conv3x3x3_dk=0,
-                fused_stack_head=len(SPLIT), fused_fc0_mlp=0)
+    want = dict(NO_LAUNCHES, conv3x3x3=5, fused_stack_head=len(SPLIT),
+                batch_norm=NORMS)
     if counts != want:
         fail(f'split decode: launches {counts}, expected {want}')
     if not (np.isfinite(got).all() and err <= tol and same_slab):
@@ -2043,12 +2234,15 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
     forward and the dx shape), K3 at its three shapes, K1 at the
     production decode (n = 128^3) and K4 at one slab (n = 64 x 128^2),
     and the differentiable conv3x3x3 (K2's dx and K3 inside
-    Conv3x3x3Fn.backward, batch 2); each against its plain version within
-    the kernel phase's tolerances and 1e-2 + 1e-2 |plain|, and timed with
-    CUDA events on its card."""
+    Conv3x3x3Fn.backward, batch 2) and the BatchNorm path at its shapes
+    (``bn_phase``); each against its plain version within the kernel
+    phase's tolerances and 1e-2 + 1e-2 |plain| (BatchNorm: BN_LIMITS),
+    and timed with CUDA events on its card."""
+    from list_tpu_torch.ops.cuda import batch_norm
     rows = []
     for d in devs:
         reset_launch_counts()
+        bn_step, bn_request = bn_phase(d, batch_norm, reps=3)
         with torch.inference_mode():
             conv = conv_phase(d, stencil3d, 8, TRAIN_CONV_SHAPES,
                               TRAIN_CONV_UNIT, plain_reps=2)
@@ -2065,18 +2259,24 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
             conv3x3x3_dx=all(r['dx_within_head_tol'] for r in grads),
             conv3x3x3_dk_backward=all(r['dk_within_head_tol']
                                       for r in grads),
-            fused_stack_head=head['ok'], fused_fc0_mlp=mlp['ok'])
+            fused_stack_head=head['ok'], fused_fc0_mlp=mlp['ok'],
+            batch_norm=all(r['ok'] for r in bn_step['per_shape']
+                           + bn_request['per_shape']))
         row = dict(device=str(d), card=lines[d.index], launches=counts,
                    within_1e2_plus_1e2_plain=within,
                    ms=dict(conv3x3x3_step=conv['ms'],
                            conv3x3x3_dk_step=dk['ms'],
                            fused_stack_head=head['ms'],
-                           fused_fc0_mlp=mlp['ms']),
+                           fused_fc0_mlp=mlp['ms'],
+                           batch_norm_step=bn_step['ms'],
+                           batch_norm_request=bn_request['ms']),
                    max_abs_err=dict(conv3x3x3=conv['max_abs_err'],
                                     conv3x3x3_dk=dk['max_abs_err'],
                                     fused_stack_head=head['max_abs_err'],
-                                    fused_fc0_mlp=mlp['max_abs_err']),
-                   conv=conv, dk=dk, head=head, mlp=mlp, gradients=grads)
+                                    fused_fc0_mlp=mlp['max_abs_err'],
+                                    batch_norm=bn_step['max_abs_err']),
+                   conv=conv, dk=dk, head=head, mlp=mlp, gradients=grads,
+                   batch_norm=[bn_step, bn_request])
         print('card kernels', json.dumps({k: row[k] for k in (
             'device', 'card', 'launches', 'within_1e2_plus_1e2_plain', 'ms',
             'max_abs_err')}), flush=True)
@@ -2300,7 +2500,7 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
             vertices=len(mesh.vertices), scores=score,
             scores_one_card=score1, launches=counts)
         want = dict(NO_LAUNCHES, conv3x3x3=5 * 2,
-                    fused_stack_head=n * 3)
+                    fused_stack_head=n * 3, batch_norm=NORMS * 2)
         if counts != want:
             fail(f'--mesh_shape {list(s)}: a batch of 2 and a test '
                  f'launched {counts}, expected {want}')
@@ -2334,7 +2534,8 @@ def cards_sweep_phase(devs, root, ckpt, stencil3d, fused_fc0):
         rec = sweep_run(cfg, label, stencil3d, fused_fc0)
         k1 = 1 if not kw else n  # slab 128 on one card, 128 / n split
         want = dict(NO_LAUNCHES, conv3x3x3=5 * SWEEP_SHAPES,
-                    fused_stack_head=k1 * SWEEP_SHAPES)
+                    fused_stack_head=k1 * SWEEP_SHAPES,
+                    batch_norm=NORMS * SWEEP_SHAPES)
         if rec['launches'] != want:
             fail(f'sweep {label}: launches {rec["launches"]}, expected '
                  f'{want}')
@@ -2413,7 +2614,8 @@ def card_rank(args, stencil3d, fused_fc0):
         run = driver_run(None, f'rank {rank}: {name}', Executor, stencil3d,
                          fused_fc0, run=lambda: train_torch.main(flags),
                          seen=seen)
-        want = STEP_LAUNCHES if Executor is LISTExecutor else NO_LAUNCHES
+        want = NO_LAUNCHES if Executor is not LISTExecutor \
+            else GROUP_STEP_LAUNCHES if args.cards > 1 else STEP_LAUNCHES
         steps = [e for e in run['events'] if e['kind'] == 'train']
         if len(steps) < 3 or any(e['launches'] != want for e in steps):
             fail(f'rank {rank} {name}: {len(steps)} steps, launches '
@@ -2453,7 +2655,8 @@ def card_rank(args, stencil3d, fused_fc0):
     rec['sweep'] = sweep_run(None, f'rank {rank} of {args.cards}', stencil3d,
                              fused_fc0, shapes=shapes,
                              run=lambda: infer_torch.main(flags))
-    want = dict(NO_LAUNCHES, conv3x3x3=5 * shapes, fused_stack_head=shapes)
+    want = dict(NO_LAUNCHES, conv3x3x3=5 * shapes, fused_stack_head=shapes,
+                batch_norm=NORMS * shapes)
     if rec['sweep']['launches'] != want:
         fail(f'rank {rank} sweep: launches {rec["sweep"]["launches"]}, '
              f'expected {want}')
@@ -2745,8 +2948,8 @@ def main():
         from list_tpu_torch.config import default_config
         from list_tpu_torch.data import SyntheticSDFDataset, collate
         from list_tpu_torch.models import LIST
-        from list_tpu_torch.ops.cuda import (KERNEL_SOURCES, build,
-                                             fused_fc0, stencil3d)
+        from list_tpu_torch.ops.cuda import (KERNEL_SOURCES, batch_norm,
+                                             build, fused_fc0, stencil3d)
         from list_tpu_torch.ops.dense_grid import dense_grid_sdf
         from list_tpu_torch.train import LISTExecutor
         from list_tpu_torch.utils.meshio import make_icosphere
@@ -2804,6 +3007,8 @@ def main():
         dk = dk_phase(dev, stencil3d)
     grads_on_card = grad_fn_phase(dev, stencil3d)
     torch.cuda.empty_cache()
+    bn_train, bn_eval = bn_phase(dev, batch_norm)
+    torch.cuda.empty_cache()
 
     # ---- path phase: full-width LIST at 128^3 ------------------------------
     torch.manual_seed(args.seed)
@@ -2847,12 +3052,12 @@ def main():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print('inference path launches', json.dumps(launches),
           f'peak_device_gb {peak_gb:.2f}', flush=True)
-    if launches != dict(conv3x3x3=5 * args.requests, conv3x3x3_dx=0,
-                        conv3x3x3_dk=0,
+    if launches != dict(NO_LAUNCHES, conv3x3x3=5 * args.requests,
                         fused_stack_head=launches['fused_stack_head'],
-                        fused_fc0_mlp=0):
+                        batch_norm=NORMS * args.requests):
         fail(f'inference path launches {launches}, expected conv3x3x3 '
-             f'{5 * args.requests} and no dx or dk')
+             f'{5 * args.requests}, batch_norm {NORMS * args.requests} '
+             'and no dx, dk or backward')
     if launches['fused_stack_head'] < args.requests:
         fail('fused_stack_head was not launched for every request')
 
@@ -3002,10 +3207,29 @@ def main():
              max_abs_err=mlp['max_abs_err'], ms=mlp['ms'],
              plain_ms=mlp['plain_ms'], bound_ms=mlp['bound_ms'],
              bound_by=mlp['bound_by'], library_ms=mlp['library_ms']),
+        dict(name='batch_norm', route='cuda', source=batch_norm.SOURCE,
+             replaces=None, library='cuDNN (F.batch_norm)',
+             launches=launches['batch_norm'], per=bn_eval['unit'],
+             max_abs_err=bn_eval['max_abs_err'], ms=bn_eval['ms'],
+             plain_ms=bn_eval['plain_ms'], bound_ms=bn_eval['bound_ms'],
+             bound_by=bn_eval['bound_by'],
+             library_ms=bn_eval['library_ms']),
+        dict(name='batch_norm_train', route='cuda', source=batch_norm.SOURCE,
+             replaces=None, library='cuDNN (F.batch_norm)',
+             launches=train_launches['batch_norm'],
+             bwd_launches=train_launches['batch_norm_bwd'],
+             driver_launches=driver_launches['batch_norm'],
+             pix3d_launches=pix3d_launches['batch_norm'],
+             per=bn_train['unit'], max_abs_err=bn_train['max_abs_err'],
+             ms=bn_train['ms'], plain_ms=bn_train['plain_ms'],
+             var_mean_ms=bn_train['var_mean_ms'],
+             bound_ms=bn_train['bound_ms'], bound_by=bn_train['bound_by'],
+             library_ms=bn_train['library_ms']),
     ]
     report = dict(card=card_line, kind=kind, kernels=kernels,
                   conv_inference=conv, conv_train=conv_train, dk=dk,
                   conv_gradients_on_card=grads_on_card, head=head, mlp=mlp,
+                  batch_norm=dict(train=bn_train, request=bn_eval),
                   requests=requests, peak_device_gb=peak_gb,
                   no_waits=no_waits,
                   small_input_err=ref_err, small_input_k4_err=k4_err,

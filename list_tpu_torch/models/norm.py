@@ -9,6 +9,15 @@ with the biased batch statistics, as ``nn.BatchNorm*d`` does, but updates
 (torch's stock module uses the unbiased variance there).  In eval mode it
 normalizes with the running statistics.
 
+On a CUDA tensor whose shape ``ops/cuda/batch_norm.py``'s ``routes``
+takes (few channels of a large extent: the voxel encoder's volumes), the
+training forward, its backward and the eval forward (under ``no_grad`` or
+inference mode) run the hand-written kernels (the training forward above
+one channel is cuDNN's, called once for y, mean and rstd), which return
+the batch mean and biased variance, so the running statistics need no
+read of their own; every other shape, and every CPU tensor, takes
+``F.batch_norm`` with the statistics from ``torch.var_mean``.
+
 Under a process group of more than one rank (``parallel.multihost``),
 training normalizes with the moments of the whole global batch, as the JAX
 package's BatchNorm does under its ``data`` mesh axis
@@ -36,6 +45,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch.distributed.nn.functional import all_reduce
 
+from list_tpu_torch.ops.cuda import batch_norm
 from list_tpu_torch.parallel.multihost import moments_group
 
 EPS = 1e-5
@@ -78,13 +88,26 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel = x.is_cuda and batch_norm.routes(
+            x.dim(), x.dtype, x.shape[1], x.numel() // x.shape[1])
         if not self.training:
+            if kernel and not torch.is_grad_enabled():
+                return batch_norm.batch_norm_eval(
+                    x, self.running_mean, self.running_var, self.weight,
+                    self.bias)
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, EPS)
         dims = [0] + list(range(2, x.dim()))
         group = moments_group()
         if group is not None:
             return self._global_batch(x, dims, group)
+        if kernel:
+            y, mean, var = batch_norm.batch_norm_train(x, self.weight,
+                                                       self.bias)
+            if not _recomputing:
+                with torch.no_grad():
+                    self._update(mean, var)
+            return y
         if not _recomputing:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=dims, correction=0)

@@ -238,6 +238,162 @@ def test_fused_fc0_mlp_kernel_matches_plain(cuda, n, channels, offset,
     torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
 
 
+# (shape, offset): C in {1, 16, 32}; spatial sizes odd (one float a thread)
+# and multiples of 4 (float4s); extents ragged against the block's chunk
+# (8,192 elements at least), with several blocks a channel whose ranges
+# cross batch rows; and an input 4 bytes off 16-byte alignment (no float4)
+BN_CASES = [((2, 1, 5, 7, 33), 0), ((2, 1, 63, 65, 67), 0),
+            ((3, 16, 33, 32, 32), 0), ((3, 16, 9, 10, 13), 0),
+            ((2, 32, 17, 19), 0), ((2, 32, 40, 41, 44), 0),
+            ((2, 16, 24, 32, 36), 1)]
+U = 2.0 ** -24  # f32 round-off
+BN_FWD_U, BN_BWD_U = 16, 64  # the limits, in U * max|plain|
+
+
+def _ulps(got, ref):
+    """max|got - ref| in units of U * max|ref|."""
+    return float((got.double() - ref).abs().max() / (U * ref.abs().max()))
+
+
+def _bn_inputs(shape, dev, seed, offset=0):
+    g_ = torch.Generator(device='cpu').manual_seed(seed)
+    n = int(np.prod(shape))
+    x = torch.empty(n + offset, device=dev)[offset:].view(shape)
+    x.copy_(3.0 + torch.randn(shape, generator=g_))
+    w = (1.0 + 0.5 * torch.randn(shape[1], generator=g_)).to(dev)
+    b = torch.randn(shape[1], generator=g_).to(dev)
+    dy = torch.randn(shape, generator=g_).to(dev)
+    return x, w, b, dy
+
+
+@pytest.mark.parametrize('shape,offset', BN_CASES)
+def test_batch_norm_kernels_match_plain(cuda, shape, offset):
+    """The kernels' statistics (batch mean, biased variance, rstd), their
+    normalize with them (the training forward's y), the backward (dx,
+    dweight, dbias) and the eval normalize against the plain versions in
+    float64 on x = 3 + N(0, 1): within BN_FWD_U (forward) and BN_BWD_U
+    (backward) f32 round-offs of max|plain|.  Two calls give bit-identical
+    results; an eval call counts one forward launch, a backward one."""
+    from list_tpu_torch.ops.cuda import batch_norm as bn
+    x, w, b, dy = _bn_inputs(shape, cuda, sum(shape) + offset, offset)
+    rm = torch.randn(shape[1], device=cuda)
+    rv = torch.rand(shape[1], device=cuda) + 0.5
+    before = (bn.launches, bn.bwd_launches)
+    runs = []
+    for _ in range(2):
+        mean, var, rstd = bn._stats(x)
+        runs.append((bn._apply(x, mean, rstd, w, b, False), mean, var, rstd)
+                    + bn._backward(x, dy, w, mean, rstd, True))
+    ye = bn.batch_norm_eval(x, rm, rv, w, b)
+    torch.cuda.synchronize()
+    assert (bn.launches, bn.bwd_launches) == (before[0] + 1, before[1] + 2)
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    y, mean, var, rstd, dx, dw, db = runs[0]
+    x64, w64, b64, dy64 = (t.double() for t in (x, w, b, dy))
+    y_ref, mean_ref, var_ref = bn.batch_norm_train_plain(x64, w64, b64)
+    rstd_ref = torch.rsqrt(var_ref + bn.EPS)
+    dx_ref, dw_ref, db_ref = bn.batch_norm_backward_plain(
+        x64, dy64, w64, mean_ref, rstd_ref)
+    ye_ref = bn.batch_norm_eval_plain(x64, rm.double(), rv.double(), w64,
+                                      b64)
+    errs = {k: _ulps(g, r) for k, g, r in (
+        ('y', y, y_ref), ('mean', mean, mean_ref), ('var', var, var_ref),
+        ('rstd', rstd, rstd_ref), ('eval', ye, ye_ref), ('dx', dx, dx_ref),
+        ('dweight', dw, dw_ref), ('dbias', db, db_ref))}
+    print('batch_norm ulps', shape, offset, errs)
+    for k, e in errs.items():
+        assert e <= (BN_FWD_U if k in ('y', 'mean', 'var', 'rstd', 'eval')
+                     else BN_BWD_U), (k, errs)
+
+
+@pytest.mark.parametrize('c', [1, 16])
+def test_batch_norm_module_routes_to_the_kernels(cuda, c):
+    """``BatchNorm`` on a routed shape (C channels of 2^20 elements each):
+    training launches the backward kernels, and the forward's at one
+    channel; y is the kernels' normalize at one channel (within the limits
+    above of the float64 plain version) and above it cuDNN's one call,
+    ``F.batch_norm``'s bit for bit, whose mean and rstd the backward and
+    the running statistics take; the gradients are the plain versions'
+    within the limits, and the running statistics 0.9 * old + 0.1 * batch
+    with the biased variance.  Under ``checkpoint`` the recompute runs a
+    second forward and leaves the statistics alone: statistics and
+    gradients bit for bit the plain forward's.  Eval under ``no_grad``
+    launches the eval kernel; eval with gradients on takes
+    ``F.batch_norm``."""
+    from list_tpu_torch.models.norm import BatchNorm, checkpoint
+    from list_tpu_torch.ops.cuda import batch_norm as bn
+    shape = (2, c, 64, 128, 64)
+    assert bn.routes(5, torch.float32, c, 2 ** 20)
+    assert bn.normalizes(c) is (c == 1)
+    x, w, b, dy = _bn_inputs(shape, cuda, 7 + c)
+    mods = [BatchNorm(c).to(cuda) for _ in range(2)]
+    for m in mods:
+        with torch.no_grad():
+            m.weight.copy_(w)
+            m.bias.copy_(b)
+            m.running_mean.fill_(0.25)
+            m.running_var.fill_(2.0)
+    xs = [x.clone().requires_grad_() for _ in range(2)]
+    f = int(c == 1)  # forward launches of a training forward
+    before = (bn.launches, bn.bwd_launches)
+    y = mods[0](xs[0])
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (bn.launches, bn.bwd_launches) == (before[0] + f, before[1] + 1)
+    checkpoint(mods[1], xs[1]).backward(dy)
+    torch.cuda.synchronize()
+    assert (bn.launches, bn.bwd_launches) \
+        == (before[0] + 3 * f, before[1] + 2)
+    for name in ('running_mean', 'running_var'):
+        assert torch.equal(getattr(mods[0], name), getattr(mods[1], name))
+    for got, ref in ((xs[1].grad, xs[0].grad),
+                     (mods[1].weight.grad, mods[0].weight.grad),
+                     (mods[1].bias.grad, mods[0].bias.grad)):
+        assert torch.equal(got, ref)
+    x64, w64, b64, dy64 = (t.double() for t in (x, w, b, dy))
+    y_ref, mean_ref, var_ref = bn.batch_norm_train_plain(x64, w64, b64)
+    dx_ref, dw_ref, db_ref = bn.batch_norm_backward_plain(
+        x64, dy64, w64, mean_ref, torch.rsqrt(var_ref + bn.EPS))
+    if c == 1:
+        assert _ulps(y, y_ref) <= BN_FWD_U
+    else:
+        assert torch.equal(y, torch.nn.functional.batch_norm(
+            x, None, None, w, b, True, 0.0, bn.EPS))
+    m = mods[0]
+    assert _ulps(m.running_mean, 0.9 * 0.25 + 0.1 * mean_ref) <= BN_FWD_U
+    assert _ulps(m.running_var, 0.9 * 2.0 + 0.1 * var_ref) <= BN_FWD_U
+    assert _ulps(xs[0].grad, dx_ref) <= BN_BWD_U
+    assert _ulps(m.weight.grad, dw_ref) <= BN_BWD_U
+    assert _ulps(m.bias.grad, db_ref) <= BN_BWD_U
+    with torch.no_grad():
+        m.eval()
+        ye = m(x)
+    torch.cuda.synchronize()
+    assert (bn.launches, bn.bwd_launches) \
+        == (before[0] + 3 * f + 1, before[1] + 2)
+    assert _ulps(ye, bn.batch_norm_eval_plain(
+        x64, m.running_mean.double(), m.running_var.double(), w64,
+        b64)) <= BN_FWD_U
+    ye_grad = m(x.detach().requires_grad_())  # eval with grads: F.batch_norm
+    assert (bn.launches, bn.bwd_launches) \
+        == (before[0] + 3 * f + 1, before[1] + 2)
+    torch.testing.assert_close(ye_grad, ye, atol=1e-5, rtol=1e-5)
+
+
+def test_batch_norm_wrapper_raises_on_what_the_kernels_do_not_take(cuda):
+    from list_tpu_torch.ops.cuda import batch_norm as bn
+    w = torch.ones(4, device=cuda)
+    for x, err in ((torch.zeros(2, 4, 8, 8, device=cuda, dtype=torch.float64),
+                    TypeError),
+                   (torch.zeros(2, 4, 8, device=cuda), ValueError),
+                   (torch.zeros(2, 5, 8, 8, device=cuda), ValueError)):
+        with pytest.raises(err):
+            bn.batch_norm_train(x, w, w)
+        with pytest.raises(err):
+            bn.batch_norm_eval(x, w, w, w, w)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 1, 4, 4, 4, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
