@@ -14,6 +14,8 @@ reference's from the same weights and batches.
   alone, as a linear layer's bias in front of a BatchNorm does).
 - ``loss_gap_first`` and ``step_gap_median``: the first step's loss gap
   and the median leaf's change gap, steadier readings of the same.
+- ``grad_gap_median`` (``median_grad_gap``, read by the cells over
+  several ranks): the median leaf's first-gradient gap.
 
 Meshes (``mesh_readings``): an answer is the host grid that came over the
 wire and the mesh's vertices, against the reference's grid of the same
@@ -85,6 +87,12 @@ def train_readings(prog: Dict, ref: Dict) -> Dict[str, float]:
     return dict(loss_gap=loss, loss_gap_first=first,
                 grad_gap=max(grad.values()), step_gap=max(change.values()),
                 step_gap_median=statistics.median(change.values()))
+
+
+def median_grad_gap(prog: Dict, ref: Dict) -> float:
+    names = sorted(ref['grad'])
+    return statistics.median(
+        _leaf_gaps(prog['grad'], ref['grad'], names).values())
 
 
 def mixed_cube_mask(pos: np.ndarray) -> np.ndarray:

@@ -9,18 +9,12 @@ in a pool of mesh workers.  Its latency runs from its submission to its
 mesh on the host.  The loop submits the next request when the oldest
 one's mesh is done.
 
-Random weights give no surface, so set-up fits them to the traffic as a
-trained model's are, with the reference: every BatchNorm's running
-statistics become those of the encoder over the first ``fit_images``
-images in training mode; then ``fc_out`` (the decoder's last layer, 256
--> 1) is solved by ridge least squares so that the decoder gives those
-images' analytic SDF at their training queries and at the voxel grid's
-points at ``FIT_STRIDE``.  The surface is then as thin as a trained
-model's, and the band wire carries it.  These weights are those of both
-sides.  Set-up also runs
-``warmup_requests`` through the pipeline.  A sample of the window's
-requests, drawn from the seed among the first ``check_window``, is kept
-and held to the reference after the window.
+Random weights give no surface, so set-up fits them to the traffic with
+the configuration's reference (``prepare_mesh`` of
+``reference/models/<model>.py``); these weights are those of both sides.
+Set-up also runs ``warmup_requests`` through the pipeline.  A sample of
+the window's requests, drawn from the seed among the first
+``check_window``, is kept and held to the reference after the window.
 
 Modes other than ``program`` serve the calibration of the limits:
 ``control`` answers the sampled requests with the reference in fp8 (its
@@ -41,41 +35,10 @@ import torch
 from torch.profiler import record_function
 
 from benchmark import check, program, trace, traffic_gen
-from benchmark.reference import model, weights
+from benchmark.reference import model, models, weights
 
 WARM_OFFSET = 1 << 40
 PROFILE_OFFSET = 1 << 41
-# fc_out's fit: the voxel grid's points at this stride, and this share of
-# the Gram matrix's mean diagonal added to it (1e-8 to 1e-2 read alike)
-FIT_STRIDE = 4
-FIT_RIDGE = 1e-4
-
-
-def fit_weights(cfg: Dict, tr: Dict, w: Dict[str, torch.Tensor],
-                imgs: np.ndarray, shapes, seed: int, device
-                ) -> Dict[str, torch.Tensor]:
-    """Set ``w``'s running statistics and ``fc_out`` in place (module
-    docstring); -> those leaves, on the host."""
-    n = tr['fit_images']
-    x = torch.as_tensor(imgs[:n], device=device)
-    pts, sdf = traffic_gen.fit_targets(cfg, shapes, n, FIT_STRIDE, seed)
-    with model.precision('f32'):
-        for name, (mean, var) in model.batch_statistics(w, cfg, x).items():
-            w[f'{name}.running_mean'].copy_(mean)
-            w[f'{name}.running_var'].copy_(var)
-        h = model.fit_features(w, cfg, x, pts)
-    a = torch.cat([h.reshape(-1, h.shape[-1]),
-                   torch.ones_like(h[..., :1]).reshape(-1, 1)], 1).double()
-    del h
-    y = sdf.reshape(-1).double() * cfg['sdf_scale']
-    gram = a.T @ a
-    gram.diagonal().add_(FIT_RIDGE * gram.diagonal().mean())
-    sol = torch.linalg.solve(gram, a.T @ y)
-    w['sdf_decoder.fc_out.weight'].copy_(sol[None, :-1])
-    w['sdf_decoder.fc_out.bias'].copy_(sol[-1:])
-    return {k: t.detach().cpu().clone() for k, t in w.items()
-            if k.endswith(('running_mean', 'running_var'))
-            or k.startswith('sdf_decoder.fc_out.')}
 
 
 def sphere_grid(res: int) -> np.ndarray:
@@ -158,9 +121,9 @@ def profile_steady(pipe: Pipeline, tr: Dict) -> Dict:
     return trace.summarize(prof)
 
 
-def _control_answer(P, cfg: Dict, img, device):
+def _control_answer(plain, P, cfg: Dict, img, device):
     with model.precision('fp8'):
-        g = model.sdf_grid(P, cfg, torch.as_tensor(img[None], device=device),
+        g = plain.sdf_grid(P, cfg, torch.as_tensor(img[None], device=device),
                            cfg['vox_res'], low=True)
     g = (g / cfg['sdf_scale']).cpu().numpy()
     return g, check.place_vertices(check.crossing_vertices(g),
@@ -172,18 +135,18 @@ def run(ctx) -> Dict:
     imgs, shapes = traffic_gen.images(cfg, tr['distinct_images'], ctx.seed,
                                       dev)
     ctx.log(f'traffic at {time.perf_counter() - ctx.t_start:.3f} s')
-    w = weights.make(cfg, ctx.seed, dev)
-    fitted = fit_weights(cfg, tr, w, imgs, shapes, ctx.seed, dev)
+    plain = models.find(cfg)
+    w = weights.make(plain.spec(cfg), ctx.seed, dev)
+    fitted = plain.prepare_mesh(cfg, tr, w, imgs, shapes, ctx.seed, dev,
+                                ctx.log)
     rng = np.random.default_rng(weights.stream_seed(ctx.seed, 'sample'))
     sample = sorted(int(x) for x in rng.choice(
         tr['check_window'], tr['check_requests'], replace=False))
-    ctx.log(f'weights at {time.perf_counter() - ctx.t_start:.3f} s; '
-            'fc_out weight norm '
-            f'{float(fitted["sdf_decoder.fc_out.weight"].norm()):.6g}')
+    ctx.log(f'weights at {time.perf_counter() - ctx.t_start:.3f} s')
     e2e, record, summary, submitted, peak = {}, {}, {}, 0, 0
     if ctx.mode == 'control':
-        answers = {i: _control_answer(w, cfg, imgs[i % len(imgs)], dev)
-                   for i in sample}
+        answers = {i: _control_answer(plain, w, cfg, imgs[i % len(imgs)],
+                                      dev) for i in sample}
         del w
         e2e['setup_s'] = time.perf_counter() - ctx.t_start
     else:
@@ -222,7 +185,7 @@ def run(ctx) -> Dict:
                       requests=inside, resolution=cfg['vox_res'])
 
     t_ref = time.perf_counter()
-    w = weights.make(cfg, ctx.seed, dev)
+    w = weights.make(plain.spec(cfg), ctx.seed, dev)
     for k, t in fitted.items():
         w[k].copy_(t)
     readings, overflows = [], 0
@@ -231,7 +194,7 @@ def run(ctx) -> Dict:
             raise RuntimeError(f'request {i} never answered')
         grid, verts = answers[i]
         with model.precision('f32'):
-            ref = model.sdf_grid(w, cfg, torch.as_tensor(
+            ref = plain.sdf_grid(w, cfg, torch.as_tensor(
                 imgs[i % len(imgs)][None], device=dev), cfg['vox_res'])
         ref = (ref / cfg['sdf_scale']).cpu().numpy()
         if ctx.mode != 'control':

@@ -8,7 +8,9 @@ steps warm every shape and give the readings the reference is held to
 (each step's losses, the first gradient from Adam's state, the change of
 every leaf).  The same executor then runs the window.  After the window
 (and the traced sub-window) the program is freed and the reference
-repeats the checked steps from the same weights and batches.
+repeats the checked steps from the same weights and batches.  The
+batches, the leaves and the reference's losses are those of the
+configuration's model (``reference/models/<model>.py``).
 
 Modes other than ``program`` serve the calibration of the limits:
 ``control`` puts the reference, in TF32, in the program's place;
@@ -20,14 +22,15 @@ batch's rows.
 from __future__ import annotations
 
 import gc
+import statistics
 import time
 from typing import Dict, List
 
 import torch
 from torch.profiler import record_function
 
-from benchmark import check, program, trace, traffic_gen
-from benchmark.reference import model, weights
+from benchmark import check, program, trace
+from benchmark.reference import model, models, weights
 
 
 def _norms(tensors: List[torch.Tensor]) -> List[float]:
@@ -40,9 +43,14 @@ class Program:
         self.ex = program.executor(cfg, w, device)
         self.mode = mode
 
+    @staticmethod
+    def half(batch):
+        """The batch that ``fault_half_batch`` trains on: its first half."""
+        return {k: v[:len(v) // 2] for k, v in batch.items()}
+
     def step(self, batch) -> Dict[str, float]:
         if self.mode == 'fault_half_batch':
-            batch = {k: v[:len(v) // 2] for k, v in batch.items()}
+            batch = self.half(batch)
         params = list(self.ex.model.parameters())
         if self.mode == 'fault_unchanged':
             kept = [p.detach().clone() for p in params]
@@ -71,8 +79,9 @@ class Reference:
     def __init__(self, cfg: Dict, w: Dict[str, torch.Tensor], device,
                  precision: str):
         self.cfg, self.device, self.precision = cfg, device, precision
+        self.ref = models.find(cfg)
         self.P, trained = {}, []
-        for name, _, kind, _ in weights.spec(cfg):
+        for name, _, kind, _ in self.ref.spec(cfg):
             t = w[name].detach().clone()
             if weights.trainable(kind):
                 t.requires_grad_()
@@ -89,8 +98,8 @@ class Reference:
              for k, v in batch.items()}
         self.opt.zero_grad(set_to_none=True)
         with model.precision(self.precision):
-            losses = model.LOSSES[self.cfg['model']](
-                self.P, self.cfg, b, self.cfg.get('reference_chunk', 0))
+            losses = self.ref.losses(self.P, self.cfg, b,
+                                     self.cfg.get('reference_chunk', 0))
         self.opt.step()
         return losses
 
@@ -125,11 +134,38 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def reference_steps(cfg: Dict, seed: int, device, batches) -> Dict:
+    """The plain reference's first steps from the seed's weights."""
+    leaves = models.find(cfg).spec(cfg)
+    return first_steps(Reference(cfg, weights.make(leaves, seed, device),
+                                 device, 'f32'), batches,
+                       weights.make(leaves, seed, device))
+
+
+def step_times(t0: float, ends: List[float]) -> str:
+    """The window's steps by their host-clock lengths: the median, the
+    slowest, and the time the steps over 1.5 x the median took beyond it
+    (a stall of the host or the card)."""
+    d = [b - a for a, b in zip([t0] + ends, ends)]
+    if not d:
+        return 'no step in the window'
+    med = statistics.median(d)
+    slow = [x for x in d if x > 1.5 * med]
+    q = (statistics.quantiles(d, n=10, method='inclusive') if len(d) > 1
+         else [med] * 9)
+    beyond = sum(slow) - med * len(slow)
+    return (f'step times: {len(d)} steps, median {med:.6f} s, p10 '
+            f'{q[0]:.6f}, p90 {q[-1]:.6f}, max {max(d):.6f} s; '
+            f'{len(slow)} over 1.5 x the median, {beyond:.6f} s beyond it, '
+            f'of {ends[-1] - t0:.6f} s')
+
+
 def run(ctx) -> Dict:
     cfg, tr, dev = ctx.cfg, ctx.traffic, ctx.device
-    batches = traffic_gen.BATCHES[cfg['model']](cfg, tr, ctx.seed, dev)
+    plain = models.find(cfg)
+    batches = plain.batches(cfg, tr, ctx.seed, dev)
     nb, n_first = len(batches), tr['checked_steps']
-    w = weights.make(cfg, ctx.seed, dev)
+    w = weights.make(plain.spec(cfg), ctx.seed, dev)
     ctx.log(f'traffic and weights at {time.perf_counter() - ctx.t_start:.3f}'
             ' s')
     side = (Reference(cfg, w, dev, 'tf32') if ctx.mode == 'control'
@@ -138,16 +174,23 @@ def run(ctx) -> Dict:
     first = first_steps(side, batches[:n_first], w)
     del w
     _sync(dev)
+    # what set-up left alive is never collected again: the window's full
+    # collections then walk only the objects its steps make
+    gc.collect()
+    gc.freeze()
     setup_s = time.perf_counter() - ctx.t_start
     ctx.log(f'set-up {setup_s:.3f} s; first steps {first["losses"]}')
 
     steps, i, t0 = 0, n_first, time.perf_counter()
-    t = t0
+    t, ends = t0, []
     while ctx.seconds > 0 and t - t0 < ctx.seconds:
         side.step(batches[i % nb])
         i, steps = i + 1, steps + 1
         t = time.perf_counter()
+        ends.append(t)
     _sync(dev)
+    gc.unfreeze()
+    ctx.log(step_times(t0, ends))
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == 'cuda'
             else 0)
 
@@ -166,17 +209,15 @@ def run(ctx) -> Dict:
     if dev.type == 'cuda':
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    ref = first_steps(Reference(cfg, weights.make(cfg, ctx.seed, dev), dev,
-                                'f32'), batches[:n_first],
-                      weights.make(cfg, ctx.seed, dev))
+    ref = reference_steps(cfg, ctx.seed, dev, batches[:n_first])
     ctx.log(f'reference {time.perf_counter() - t_ref:.3f} s; losses '
             f'{ref["losses"]}; worst leaves {check.worst_leaves(first, ref)}')
     e2e = {'setup_s': setup_s}
     if steps:
         e2e['train_step_s'] = (t - t0) / steps
     return dict(e2e=e2e, readings=check.train_readings(first, ref),
-                attempted=steps, failed=0, memory_peak_bytes=peak,
-                trace=summary,
+                checked=(first, ref), attempted=steps, failed=0,
+                memory_peak_bytes=peak, trace=summary,
                 record=dict(cfg=cfg, trace=summary, steps=steps,
                             profile_steps=tr['profile_steps'],
                             train_step_s=e2e.get('train_step_s')))

@@ -134,6 +134,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     spec = importlib.util.spec_from_file_location(
         f'benchmark.drivers.{traffic["driver"]}', files['driver'])
     driver = importlib.util.module_from_spec(spec)
+    # under its own name, so that a driver's processes can import it
+    sys.modules[spec.name] = driver
     spec.loader.exec_module(driver)
     ctx = Ctx(cell=cell, cfg=cfg, traffic=traffic, seed=int(seed),
               seconds=float(seconds), trace=bool(trace), device=dev,

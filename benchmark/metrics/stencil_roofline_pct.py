@@ -12,7 +12,7 @@ def read(record):
     parts = [trace.kernel_time(s, program.KERNELS[k])
              for k in ('k2', 'k3_partial', 'k3_reduce')]
     t, n = sum(p[0] for p in parts), sum(p[1] for p in parts)
-    if pk is None or n == 0 or t <= 0 or record['cfg']['model'] != 'LIST':
+    if pk is None or n == 0 or t <= 0:
         return None
     return 100.0 * record['profile_steps'] * counts.stencil_step_bound_s(
         record['cfg'], pk) / t

@@ -2,13 +2,16 @@
 configuration states and loaded with the benchmark's weights.
 
 This is the one module of the benchmark that imports the program, and
-only inside its functions.  It takes from the program its executors, the
-spans of a request (``DeviceSpans`` through ``timings``), the mesh
-extraction and the names of its kernels (``KERNELS``).
+only inside its functions.  It takes from the program its executors (the
+model and executor classes its registry resolves from the configuration's
+``model``), the spans of a request (``DeviceSpans`` through ``timings``),
+the mesh extraction, its process group (``parallel/multihost.py``) and
+the names of its kernels (``KERNELS``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Dict
 
@@ -37,14 +40,12 @@ def config(cfg: Dict):
 
 def executor(cfg: Dict, weights: Dict[str, torch.Tensor], device):
     """The configuration's executor on ``device``, its model holding
-    ``weights`` (every key of its state_dict, shapes checked)."""
-    from list_tpu_torch.models import LIST, CoarseNet
-    from list_tpu_torch.train.executors import (CoarseNetExecutor,
-                                                LISTExecutor)
+    ``weights`` (every key of its state_dict, shapes checked): the classes
+    the program's registry resolves from ``cfg['model']``."""
+    from list_tpu_torch import registry
     pcfg = config(cfg)
-    model_cls, ex_cls = {'LIST': (LIST, LISTExecutor),
-                         'CoarseNet': (CoarseNet, CoarseNetExecutor)}[
-        cfg['model']]
+    model_cls = registry.get_class(cfg['model'])
+    ex_cls = registry.get_class(registry.executor_for(cfg['model']))
     with torch.device(device):
         model = model_cls.from_config(pcfg)
     model.load_state_dict(weights, strict=True)
@@ -63,3 +64,32 @@ def mesh(grid, bb_min: float, bb_max: float):
     from list_tpu_torch.utils.meshing import generate_mesh
     return generate_mesh(grid, bb_min, bb_max)
 
+
+
+def join_group(address: str, world: int, rank: int, backend: str, device):
+    """Join the program's process group as ``rank`` of ``world``, as its
+    drivers do under ``--multihost 1``."""
+    from list_tpu_torch.parallel import multihost
+    return multihost.initialize(address, world, rank, backend=backend,
+                                device=device)
+
+
+def leave_group() -> None:
+    from list_tpu_torch.parallel import multihost
+    multihost.shutdown()
+
+
+@contextlib.contextmanager
+def no_exchange(ex):
+    """The fault of a data-parallel step with the exchange between ranks
+    left out: ``ex`` all-reduces no gradient, and its BatchNorms take this
+    rank's own moments, not the global batch's."""
+    from list_tpu_torch.models import norm
+    group = norm.moments_group
+    ex._all_reduce_grads = lambda: None
+    norm.moments_group = lambda: None
+    try:
+        yield
+    finally:
+        norm.moments_group = group
+        del ex._all_reduce_grads

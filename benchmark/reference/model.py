@@ -1,11 +1,12 @@
 """Plain PyTorch reference of LIST (stage 2) and CoarseNet (stage 1).
 
 Written from the models' published description, as functions of a dict of
-parameters named as in ``weights.spec``: ResNet18 encoders with a stride-1
-7x7 first convolution, the TreeGCN point decoder, the per-point MLP and
-the spatial transformer, nearest-point voxelization of the coarse cloud,
-``VoxelEncoder2``, and the SDF decoder over 7 displaced trilinear samples
-of every voxel scale plus the perceptual features of the projected query.
+parameters named as in ``weights.list_spec`` and ``coarsenet_spec``:
+ResNet18 encoders with a stride-1 7x7 first convolution, the TreeGCN
+point decoder, the per-point MLP and the spatial transformer,
+nearest-point voxelization of the coarse cloud, ``VoxelEncoder2``, and
+the SDF decoder over 7 displaced trilinear samples of every voxel scale
+plus the perceptual features of the projected query.
 ``torch.nn.functional`` does the convolutions, norms, resizes and grid
 samples; no kernel, cache or plan of the program is used.
 
@@ -324,9 +325,6 @@ def coarsenet_losses(P, cfg: Dict, batch: Dict, chunk: int = 0,
     loss = chamfer_loss(pc, batch['pc'])
     loss.backward()
     return {'chamfer_loss': loss.detach()}
-
-
-LOSSES = {'LIST': list_losses, 'CoarseNet': coarsenet_losses}
 
 
 @torch.no_grad()

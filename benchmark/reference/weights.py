@@ -3,8 +3,9 @@ made from a seed.
 
 Both sides of a comparison get these values: the program loads them into
 its model by name, the reference makes them again from the same seed.
-The names are the models' ``state_dict`` keys; ``spec`` lists each with
-its shape and how it starts:
+The names are the models' ``state_dict`` keys; a model's ``spec`` (its
+reference module's, ``reference/models/``) lists each with its shape and
+how it starts:
 
 - ``w``: a weight, normal with standard deviation ``gain / sqrt(fan_in)``
   (He's, gain sqrt(2), for the ReLU networks; TreeGCN's branching
@@ -148,13 +149,6 @@ def coarsenet_spec(cfg: Dict) -> List[Leaf]:
         'point_decoder', cfg['point_feat'], cfg['point_degree'])
 
 
-SPECS = {'LIST': list_spec, 'CoarseNet': coarsenet_spec}
-
-
-def spec(cfg: Dict) -> List[Leaf]:
-    return SPECS[cfg['model']](cfg)
-
-
 # (q0, q1, q2, 1) rows -> (u, v, depth) columns, flattened row-major
 CAMERA = (60.0, 0.0, 0.0,
           0.0, -60.0, 0.0,
@@ -166,10 +160,10 @@ def trainable(kind: str) -> bool:
     return kind in ('w', 'zero', 'one', 'proj')
 
 
-def make(cfg: Dict, seed: int, device, dtype=torch.float32
+def make(leaves: List[Leaf], seed: int, device, dtype=torch.float32
          ) -> Dict[str, torch.Tensor]:
-    """Every leaf of ``spec(cfg)``, made on ``device`` from ``seed``."""
-    leaves = spec(cfg)
+    """Every leaf of ``leaves`` (a model's ``spec(cfg)``), made on
+    ``device`` from ``seed``."""
     sizes = [math.prod(s) for _, s, _, _ in leaves]
     scale = torch.tensor([std if k == 'w' else 0.0
                           for _, _, k, std in leaves], dtype=dtype)

@@ -30,6 +30,17 @@ TINY = dict(img_res=32, vox_res=16, im_enc_layers=[1, 1, 1, 1, 4, 4, 4],
 TINY_MESH_TRAFFIC = dict(distinct_images=4, check_window=6, check_requests=2,
                          warmup_requests=2, profile_requests=2, fit_images=2)
 
+# A cell that drivers/train_dp.py serves and BENCHMARK.json does not list
+# (its step time spreads too widely between runs; PERF.md §7): rehearsed
+# under the limits proposed for it, with the metrics it would report.
+DP4 = dict(name='list.train.dp4', config='list_stage2',
+           traffic='train_closed_dp4', chips=4,
+           why='stage-2 steps over 4 ranks, 2 rows a rank')
+DP4_LIMITS = dict(loss_gap_first=0.015, grad_gap=None, grad_gap_median=0.009,
+                  step_gap_median=0.1, rank_gap=0.0)
+DP4_METRICS = ('train_step_s', 'setup_s', 'train_mfu_pct', 'idle_pct.train',
+               'batch_ms', 'forward_ms', 'backward_ms', 'allreduce_ms')
+
 
 def pytest_configure(config):
     config.addinivalue_line(
@@ -51,12 +62,8 @@ def build_dir(tmp_path_factory):
 
 
 def _tiny_config(cfg):
-    flags = dict(cfg['program_flags'], img_res=32, point_feat=[128, 8, 3],
-                 point_degree=[2, 4], train_batch_size=4)
-    if cfg['model'] == 'LIST':
-        flags.update(vox_res=16, im_enc_layers=TINY['im_enc_layers'],
-                     sample_point_density=64, sample_distribution=[0.5, 0.5],
-                     sigmas=[0.01, 0.07])
+    flags = dict(cfg['program_flags'])
+    flags.update({k: v for k, v in TINY.items() if k in flags})
     return dict(cfg, **TINY, program_flags=flags)
 
 
@@ -83,8 +90,50 @@ def tiny_root() -> str:
             t = harness.load_json(os.path.join(tdir, f))
             if t['driver'] == 'mesh':
                 _write(os.path.join(tdir, f), dict(t, **TINY_MESH_TRAFFIC))
+        _add_dp4(root)
+        _split_batches(root)
         _TINY['root'] = root
     return _TINY['root']
+
+
+def _add_dp4(root):
+    from benchmark import harness
+    b = harness.bench(root)
+    b['workloads'].append(DP4)
+    b['per_layer'].append(dict(
+        name='allreduce_ms', unit='ms', better='lower',
+        source='program_span', layer='the all-reduces of a step',
+        moves='train_step_s', workloads=[]))
+    for m in b['end_to_end'] + b['per_layer']:
+        if m['name'] in DP4_METRICS and 'workloads' in m:
+            m['workloads'].append(DP4['name'])
+    _write(os.path.join(root, 'BENCHMARK.json'), b)
+    _write(os.path.join(root, 'benchmark', 'limits',
+                        f'{DP4["name"]}.json'), DP4_LIMITS)
+
+
+def _split_batches(root):
+    """A cell over several ranks gets a configuration of its own in the
+    tiny root, with two rows a rank, as its global batch gives them at
+    its own size."""
+    from benchmark import harness
+    b = harness.bench(root)
+    for w in b['workloads']:
+        t = harness.load_json(os.path.join(root, 'benchmark', 'traffic',
+                                           f'{w["traffic"]}.json'))
+        if 'ranks' not in t:
+            continue
+        c = harness.find(b['configs'], w['config'], 'config')
+        cfg = harness.load_json(os.path.join(root, c['file']))
+        rows = 2 * t['ranks']
+        name = f'{c["name"]}.{w["name"]}'
+        c = dict(c, name=name, file=f'benchmark/configs/{name}.json')
+        _write(os.path.join(root, c['file']), dict(
+            cfg, train_batch_size=rows,
+            program_flags=dict(cfg['program_flags'], train_batch_size=rows)))
+        b['configs'].append(c)
+        w['config'] = name
+    _write(os.path.join(root, 'BENCHMARK.json'), b)
 
 
 def _write(path, obj):

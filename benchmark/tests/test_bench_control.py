@@ -1,8 +1,9 @@
 """The comparison against the faults a cell can have and against its
-control, driven through the rest of a run at tiny sizes on the CPU: each
-fault comes out not correct, and the mesh control reads far above the
-program.  The control of a training cell is the reference in TF32, which
-only a card computes; it runs where there is one."""
+control, driven through the rest of a run at tiny sizes on the CPU (a
+cell over several ranks in as many gloo processes): each fault comes out
+not correct, and the mesh control reads far above the program.  The
+control of a training cell is the reference in TF32, which only a card
+computes; it runs where there is one."""
 
 import pytest
 
@@ -12,7 +13,10 @@ FAULTS = [('list.train', 'fault_unchanged'),
           ('list.train', 'fault_half_batch'),
           ('coarsenet.train', 'fault_unchanged'),
           ('coarsenet.train', 'fault_half_batch'),
-          ('list.mesh128', 'fault_swap')]
+          ('list.mesh128', 'fault_swap'),
+          ('list.train.dp4', 'fault_unchanged'),
+          ('list.train.dp4', 'fault_half_batch'),
+          ('list.train.dp4', 'fault_no_exchange')]
 
 
 @pytest.mark.parametrize('cell,fault', FAULTS)

@@ -11,6 +11,9 @@ from benchmark import harness
 
 BENCH = os.path.join(harness.ROOT, 'benchmark')
 REFERENCE = ['benchmark.reference.model', 'benchmark.reference.weights',
+             'benchmark.reference.models',
+             'benchmark.reference.models.LIST',
+             'benchmark.reference.models.CoarseNet',
              'benchmark.check', 'benchmark.counts', 'benchmark.peaks',
              'benchmark.traffic_gen', 'benchmark.trace']
 
@@ -36,7 +39,9 @@ def test_no_source_of_the_benchmark_imports_jax():
 
 def test_reference_and_yardstick_import_nothing_of_the_program():
     for mod in REFERENCE:
-        path = os.path.join(harness.ROOT, *mod.split('.')) + '.py'
+        path = os.path.join(harness.ROOT, *mod.split('.'))
+        path = (path + '.py' if os.path.isfile(path + '.py')
+                else os.path.join(path, '__init__.py'))
         assert 'list_tpu_torch' not in _top_level_imports(path), mod
     code = ('import sys; sys.path.insert(0, sys.argv[1])\n'
             + ''.join(f'import {m}\n' for m in REFERENCE)

@@ -47,9 +47,10 @@ def test_cpu_rehearsal_prints_a_line_of_the_contract(cell):
 def test_cpu_rehearsal_traced(cell):
     line, err, _ = rehearse(cell, trace=True)
     _shape(line, cell, True)
-    # a CPU run states no device number
+    # a CPU run states no device time: host-clock times and a counter
     for name in line['metrics']:
-        assert name in ('encode_ms', 'decode_ms', 'mc_ms'), name
+        assert name in ('encode_ms', 'decode_ms', 'mc_ms', 'batch_ms',
+                        'launch_ms', 'fetch_ms', 'band_fallback_pct'), name
 
 
 def test_no_card_no_result(monkeypatch, capsys):

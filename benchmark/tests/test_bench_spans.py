@@ -13,10 +13,11 @@ from conftest import rehearse
 B = harness.bench()
 CELLS = [w['name'] for w in B['workloads']]
 HOST = ('batch_ms', 'launch_ms', 'fetch_ms')
-DEVICE = ('forward_ms', 'backward_ms', 'voxel_ms', 'percep_ms', 'band_ms')
+DEVICE = ('forward_ms', 'backward_ms', 'voxel_ms', 'percep_ms', 'band_ms',
+          'allreduce_ms')
 SPANS = [m['name'] for m in B['per_layer']
          if m['source'] in ('program_span', 'program_counter')
-         and m['name'] not in ('encode_ms', 'decode_ms')]
+         and m['name'] not in ('encode_ms', 'decode_ms')] + ['allreduce_ms']
 
 
 @pytest.mark.parametrize('cell', CELLS)

@@ -223,6 +223,3 @@ def fit_targets(cfg: Dict, shapes: Shapes, n: int, stride: int, seed: int):
     grid = grid.reshape(1, -1, 3).float().expand(n, -1, -1)
     pts = torch.cat([near, grid], 1)
     return pts, sub.sdf(pts)
-
-
-BATCHES = {'LIST': list_batches, 'CoarseNet': coarse_batches}
