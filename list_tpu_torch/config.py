@@ -3,6 +3,8 @@
 Same flag names and defaults as ``list_tpu/config.py`` (itself mirroring
 the reference's ``arguments.py``), so an experiment command runs under
 either package.  Flags ``_INERT`` here are inert in the JAX package too.
+The port's own models add their flags where ``--model`` names one
+(``_MODEL_FLAGS``: DISN's ``--vgg_widths`` ... ``--disn_camera``).
 The JAX package's layout-only training flags (``--fuse_sample_gathers``,
 ``--collapse_samples``, ``--collapse_select``, ``--fc0_dmajor``,
 ``--sort_queries``, ``--percep_collapse``) compute the same values as
@@ -182,6 +184,43 @@ def _build_parser() -> ArgumentParser:
     return p
 
 
+def _disn_flags(p: ArgumentParser) -> None:
+    """The flags of DISN (``models/disn.py``), a model of the port alone."""
+    a = p.add_argument
+    a('--vgg_widths', type=int, nargs=5, default=[64, 128, 256, 512, 512],
+      help='DISN: channels of the VGG-16 encoder\'s five blocks (2, 2, 3, '
+           '3 and 3 convolutions).')
+    a('--vgg_fc', type=int, nargs='+', default=[4096, 4096, 1024],
+      help='DISN: fc6, fc7 and fc8; fc8 is the global feature.')
+    a('--disn_point', type=int, nargs='+', default=[64, 256, 512],
+      help='DISN: each stream\'s point MLP after xyz.')
+    a('--disn_head', type=int, nargs='+', default=[512, 256],
+      help='DISN: each stream\'s layers between [point | image feature] '
+           'and its 1-wide output.')
+    a('--disn_camera', type=float, nargs=12,
+      default=[136 / 1.2, 0.0, 0.0, 0.0, -136 / 1.2, 0.0, 0.0, 0.0, 0.0,
+               68.0, 68.0, 1.0],
+      help='DISN: the (4, 3) camera, row-major, mapping (x, y, z, 1) to '
+           '(u, v, depth) on the 137^2 maps, for images without their '
+           'own; the default is the synthetic renders\' orthographic '
+           'view.')
+
+
+# Flags of the port's own models, by the model's resolved path: parsed only
+# where --model names one, so that every other command line parses to the
+# JAX package's namespace.
+_MODEL_FLAGS = {'list_tpu_torch.models.disn.DISN': _disn_flags}
+
+
+def _parser(model: Optional[str]) -> ArgumentParser:
+    from list_tpu_torch.registry import resolve
+    p = _build_parser()
+    add = _MODEL_FLAGS.get(resolve(model)) if model else None
+    if add is not None:
+        add(p)
+    return p
+
+
 def _validate(args: Namespace) -> None:
     fg = int(getattr(args, 'fuse_sample_gathers', 0))
     if fg not in (0, 1):
@@ -214,13 +253,14 @@ def _finalize(args: Namespace) -> Namespace:
 
 def get_args(argv: Optional[Sequence[str]] = None) -> Namespace:
     """Parse CLI args (pass ``argv`` for programmatic use)."""
-    return _finalize(_build_parser().parse_args(argv))
+    known, _ = _build_parser().parse_known_args(argv)
+    return _finalize(_parser(known.model).parse_args(argv))
 
 
 def default_config(**overrides) -> Namespace:
     """Programmatic config with the CLI defaults; ``overrides`` apply before
     the derived fields are computed."""
-    args = _build_parser().parse_args([])
+    args = _parser(overrides.get('model')).parse_args([])
     for k, v in overrides.items():
         if not hasattr(args, k):
             raise ValueError(f'Unknown config field: {k}')

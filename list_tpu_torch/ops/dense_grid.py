@@ -14,7 +14,8 @@ so trilinear sampling factorizes per axis with static indices and weights
    taps fold into three volumes, and one banded product per slab (or once,
    hoisted) gives their summed fc_0 term.
 3. Perceptual maps are resized once and projected through the fc_0 percep
-   rows before the 4-corner bilinear gather.
+   rows before the 4-corner bilinear gather (``percep_maps`` and
+   ``percep_sample``, the block DISN's decode shares).
 4. The head, by ``use_pallas`` as in the JAX package: 2 (the default
    here) ``fused_stack_head`` (K1 on the card, its plain version on the
    CPU); 0 the JAX package's XLA head, which is ``fused_stack_head_plain``
@@ -23,6 +24,10 @@ so trilinear sampling factorizes per axis with static indices and weights
    t-major (7, n, C) stack, the coarse term folded into the perceptual one
    and the sum cast to the compute dtype, and ``fused_fc0_mlp`` (K4 on the
    card) as the head.
+
+``disn_grid_sdf`` is DISN's dense decode (``models/disn.py``): the
+same perceptual block on its local stream's pixel rows, then its two
+streams' MLPs per slab.
 
 The JAX ``lax.scan`` over slabs is a Python generator here
 (``dense_grid_slabs``; ``dense_grid_sdf`` concatenates it).  The host
@@ -192,6 +197,52 @@ def _dyn_slice0(v: torch.Tensor, start: int, size: int) -> torch.Tensor:
     return v[start:start + size]
 
 
+# ---- the perceptual block (LIST's and DISN's dense decodes) -----------------
+
+def percep_maps(feat_l2: Sequence[torch.Tensor], w_rows: torch.Tensor,
+                dt: torch.dtype) -> torch.Tensor:
+    """One image's channels-last (1, H, W, C) maps resized to the 137^2
+    map (align corners), concatenated and projected through ``w_rows``
+    (sum C, out), the first layer's pixel rows, on ``dt`` operands with
+    an f32 product -> (137^2, out) in ``dt``.  The projection before the
+    bilinear sample is exact: both are linear."""
+    ms = PERCEP_MAP
+    pmaps = torch.cat([resize_bilinear_align_corners(f, ms, ms)
+                       for f in feat_l2], dim=-1)  # (1, 137, 137, sum C)
+    pm = _mm32(pmaps.to(dt), w_rows.to(dt)).to(dt)
+    return pm[0].reshape(ms * ms, -1)
+
+
+def percep_sample(flat_pm: torch.Tensor, t: torch.Tensor, p0: torch.Tensor,
+                  p1: torch.Tensor, p2: torch.Tensor, dt: torch.dtype
+                  ) -> torch.Tensor:
+    """The projected map ``flat_pm`` (``percep_maps``) at the queries
+    (p0, p1, p2), each (S, R, R): (p0, p1, p2, 1) through the (4, 3) camera
+    ``t`` with the perspective divide (+1e-8), clamped to the map, the
+    4-corner gather and the bilinear in ``dt`` -> (n, out)."""
+    ms = PERCEP_MAP
+    n = p0.numel()
+    u = p0 * t[0, 0] + p1 * t[1, 0] + p2 * t[2, 0] + t[3, 0]
+    v = p0 * t[0, 1] + p1 * t[1, 1] + p2 * t[2, 1] + t[3, 1]
+    d = p0 * t[0, 2] + p1 * t[1, 2] + p2 * t[2, 2] + t[3, 2]
+    xpix = (u / (d + 1e-8)).clamp(0.0, float(ms - 1))
+    ypix = (v / (d + 1e-8)).clamp(0.0, float(ms - 1))
+    x0i = torch.floor(xpix).long()
+    y0i = torch.floor(ypix).long()
+    x1i = (x0i + 1).clamp(max=ms - 1)
+    y1i = (y0i + 1).clamp(max=ms - 1)
+    wxf = (xpix - x0i.float()).reshape(n, 1).to(dt)
+    wyf = (ypix - y0i.float()).reshape(n, 1).to(dt)
+    idx = torch.cat([(y0i * ms + x0i).reshape(n),
+                     (y0i * ms + x1i).reshape(n),
+                     (y1i * ms + x0i).reshape(n),
+                     (y1i * ms + x1i).reshape(n)])
+    vals = flat_pm[idx].reshape(4, n, -1)
+    top = vals[0] * (1 - wxf) + vals[1] * wxf
+    bot = vals[2] * (1 - wxf) + vals[3] * wxf
+    return top * (1 - wyf) + bot * wyf
+
+
 def dense_grid_sdf(*args, **kwargs) -> torch.Tensor:
     """Dense (R^3) SDF for batch size 1 -> (R, R, R) f32 raw SDF, or with
     ``x_range`` (x0, x1) its x rows [x0, x1) as (x1 - x0, R, R): the slabs
@@ -297,11 +348,7 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
 
     # perceptual maps: resize once, project through the fc_0 percep rows
     with span('decode.percep', dev):
-        ms = PERCEP_MAP
-        pmaps = torch.cat([resize_bilinear_align_corners(f, ms, ms)
-                           for f in feat_l2], dim=-1)  # (1, 137, 137, 1024)
-        pm512 = _mm32(pmaps.to(dt), w1_percep.to(dt)).to(dt)
-        flat_pm = pm512[0].reshape(ms * ms, -1)
+        flat_pm = percep_maps(feat_l2, w1_percep, dt)
 
     with span('decode.voxel', dev):
         vols = [f[0].to(dt) for f in vox_feats]
@@ -457,26 +504,7 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
             fy = (ar * step + bb_min)[None, :, None].expand(S, R, R)
             fz = (ar * step + bb_min)[None, None, :].expand(S, R, R)
             p0, p1, p2 = 2.0 * fz, 2.0 * fy, 2.0 * fx
-            u = p0 * t[0, 0] + p1 * t[1, 0] + p2 * t[2, 0] + t[3, 0]
-            v = p0 * t[0, 1] + p1 * t[1, 1] + p2 * t[2, 1] + t[3, 1]
-            d = p0 * t[0, 2] + p1 * t[1, 2] + p2 * t[2, 2] + t[3, 2]
-            xpix = (u / (d + 1e-8)).clamp(0.0, float(ms - 1))
-            ypix = (v / (d + 1e-8)).clamp(0.0, float(ms - 1))
-            x0i = torch.floor(xpix).long()
-            y0i = torch.floor(ypix).long()
-            x1i = (x0i + 1).clamp(max=ms - 1)
-            y1i = (y0i + 1).clamp(max=ms - 1)
-            wxf = (xpix - x0i.float()).reshape(n, 1).to(dt)
-            wyf = (ypix - y0i.float()).reshape(n, 1).to(dt)
-            idx = torch.cat([(y0i * ms + x0i).reshape(n),
-                             (y0i * ms + x1i).reshape(n),
-                             (y1i * ms + x0i).reshape(n),
-                             (y1i * ms + x1i).reshape(n)])
-            vals = flat_pm[idx].reshape(4, n, -1)
-            top = vals[0] * (1 - wxf) + vals[1] * wxf
-            bot = vals[2] * (1 - wxf) + vals[3] * wxf
-            percep = top * (1 - wyf) + bot * wyf
-            del vals, top, bot
+            percep = percep_sample(flat_pm, t, p0, p1, p2, dt)
 
         qxyz = torch.stack([p0, p1, p2], dim=-1).reshape(n, 3)
         tail = (w1_xyz, b1, w2, b2, w3, b3, w4, b4)
@@ -492,3 +520,104 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
             sdf = head(parts, coarse, percep, qxyz, w1_parts, *tail)
         del parts
         yield sdf.reshape(S, R, R)
+
+
+# ---- DISN ----------------------------------------------------------------------
+
+def _stream_weights(stream, dt: torch.dtype):
+    """A DISN stream's layers as (W^T, bias) pairs: the point MLP (its
+    first layer in f32: its K = 3 product takes the f32 coordinates; the
+    rest in ``dt``), the head's first layer without its image rows, the
+    head's other layers, and the output layer's W^T in f32."""
+    pts = [getattr(stream, f'point{i + 1}') for i in range(stream.n_point)]
+    fcs = [getattr(stream, f'fc{i + 1}') for i in range(stream.n_head)]
+    point = [(pts[0].weight.t().float(), pts[0].bias.float())]
+    point += [(m.weight.t().to(dt), m.bias.to(dt)) for m in pts[1:]]
+    n_pt = pts[-1].out_features
+    first = (fcs[0].weight[:, :n_pt].t().to(dt), fcs[0].bias.to(dt))
+    rest = [(m.weight.t().to(dt), m.bias.to(dt)) for m in fcs[1:]]
+    return point, first, rest, stream.fc_out.weight.t().float()
+
+
+def _stream_hidden(xyz: torch.Tensor, point, first, rest,
+                   feat: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """One stream up to its output layer over n queries: the point MLP
+    (ReLU after every layer), the head's first layer with ``feat`` (n, H)
+    or (H,) added, then its bias (None: in ``feat``) and ReLU, and the
+    head's other layers."""
+    (w, b), *more = point
+    h = torch.addmm(b, xyz, w).relu_().to(dt)
+    for w, b in more:
+        h = torch.addmm(b, h, w).relu_()
+    w, b = first
+    h = torch.addmm(feat, h, w)
+    if b is not None:
+        h.add_(b)
+    h.relu_()
+    for w, b in rest:
+        h = torch.addmm(b, h, w).relu_()
+    return h
+
+
+@torch.no_grad()
+def disn_grid_sdf(model, enc, vox_res: int, slab: Optional[int] = None,
+                  compute_dtype: torch.dtype = torch.bfloat16,
+                  bb_min: float = -0.5, bb_max: float = 0.5) -> torch.Tensor:
+    """DISN's (R, R, R) f32 raw SDF of one image (batch size 1) from its
+    encoding (``models/disn.py`` ``encode``), decoded in x slabs of
+    ``slab`` rows (default R).
+
+    The global stream's image rows enter as one bias of the image (its
+    1,024 features through them, plus the layer's bias, in f32); the local
+    stream's pixel rows project the five maps once (``percep_maps``), and
+    each slab samples the projected map at its queries' pixels
+    (``percep_sample``).  Then
+    per slab both streams' point MLPs and heads on ``compute_dtype``
+    operands with f32 accumulation (the first point layer, K = 3, on the
+    f32 coordinates), and the two output layers in f32 on the last hidden
+    layers, summed.
+
+    Spans (``utils/spans.py``, with events on the encoding's device):
+    ``decode.percep``, the maps' projection, then in each slab the pixel
+    projection, the 4-corner gather and the bilinear; ``decode.head``, the
+    global bias, then in each slab the point MLPs, both streams' products
+    and the sum."""
+    R = vox_res
+    S = R if slab is None else int(slab)
+    assert R % S == 0, (R, S)
+    dt = compute_dtype
+    glob = enc['global']
+    dev = glob.device
+    sg, sl = model.stream_g, model.stream_l
+    n_pt = sg.fc1.in_features - glob.shape[-1]  # the point feature
+    with span('decode.percep', dev):
+        flat_pm = percep_maps(enc['feat_l2'], sl.fc1.weight[:, n_pt:].t(), dt)
+    with span('decode.head', dev):
+        pg, (wg, _), rg, og = _stream_weights(sg, dt)
+        pl, fl, rl, ol = _stream_weights(sl, dt)
+        bias_g = torch.addmm(sg.fc1.bias.float(), glob[:1].float(),
+                             sg.fc1.weight[:, n_pt:].t().float())[0].to(dt)
+        b_out = (sg.fc_out.bias + sl.fc_out.bias).float()
+    t = enc['trans_mat'][0].float()
+    step = (bb_max - bb_min) / (R - 1)
+    ar = torch.arange(R, dtype=torch.float32, device=dev)
+    ar_s = torch.arange(S, dtype=torch.float32, device=dev)
+    out = []
+    for k in range(R // S):
+        with span('decode.percep', dev):
+            fx = ((ar_s + k * S) * step + bb_min)[:, None, None].expand(
+                S, R, R)
+            fy = (ar * step + bb_min)[None, :, None].expand(S, R, R)
+            fz = (ar * step + bb_min)[None, None, :].expand(S, R, R)
+            local = percep_sample(flat_pm, t, fx, fy, fz, dt)
+        with span('decode.head', dev):
+            xyz = torch.stack([fx, fy, fz], -1).reshape(-1, 3)
+            h_g = _stream_hidden(xyz, pg, (wg, None), rg, bias_g, dt)
+            h_l = _stream_hidden(xyz, pl, fl, rl, local, dt)
+            del local
+            sdf = torch.addmm(b_out, h_g.float(), og)
+            del h_g
+            sdf = torch.addmm(sdf, h_l.float(), ol)
+            del h_l
+        out.append(sdf.reshape(S, R, R))
+    return torch.cat(out)

@@ -8,6 +8,10 @@
   clamped below at 1e-8 as the JAX package does: at p == 0 or 1 exactly
   both the value and the gradient stay finite, and ``torch.maximum``
   splits the gradient at a tie as ``jnp.maximum`` does;
+- ``weighted_l1_sdf_loss`` (DISN): the mean over the queries of the
+  absolute error against the scaled target, weighted m1 = 4 where the
+  unscaled target is below delta = 0.01 (the surface and the inside) and
+  m2 = 1 elsewhere, DISN's published weights;
 - ``chamfer_distance`` / ``chamfer_loss`` (stage 1): the bidirectional
   mean squared Chamfer distance from |x|^2 + |y|^2 - 2 x.y, clamped at 0,
   in full f32 (the package switches TF32 off, as the JAX package asks for
@@ -32,6 +36,13 @@ def sdf_loss(pred_sdf: torch.Tensor, gt_sdf: torch.Tensor,
         'ignore_sdf_loss_realvalue': realvalue,
         'ignore_sdf_accuracy': accuracy,
     }
+
+
+def weighted_l1_sdf_loss(pred_sdf: torch.Tensor, gt_sdf: torch.Tensor,
+                         sdf_scale: float) -> torch.Tensor:
+    """pred_sdf (raw, ``sdf_scale`` units), gt_sdf (unscaled): (B, N)."""
+    w = torch.where(gt_sdf < 0.01, 4.0, 1.0)
+    return (w * (pred_sdf - gt_sdf * sdf_scale).abs()).mean()
 
 
 def occupancy_loss(occ_pred: torch.Tensor, occ_gt: torch.Tensor,

@@ -25,6 +25,7 @@ _ALIASES: Dict[str, str] = {
     # Short names for convenience.
     'CoarseNet': 'list_tpu_torch.models.CoarseNet',
     'LIST': 'list_tpu_torch.models.LIST',
+    'DISN': 'list_tpu_torch.models.disn.DISN',
     'IM2PointFarthest': 'list_tpu_torch.data.IM2PointFarthest',
     'IM2SDF': 'list_tpu_torch.data.IM2SDF',
     'Pix3D': 'list_tpu_torch.data.Pix3D',

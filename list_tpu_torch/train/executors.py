@@ -32,6 +32,11 @@ running statistics stay bit-identical on every rank.
   carries the CUDA event its fetch waits on); ``predict_grid_batch``
   encodes B images in one pass and decodes each; ``test`` adds marching
   cubes and, with ``eval_pred``, the mesh metrics.
+- ``DISNExecutor`` (``models/disn.py``): the weighted L1 SDF loss;
+  ``predict_grid`` and ``test`` as LIST's, over DISN's dense decode.
+  The request around an encode and a decode (spans, device events, the
+  wire), ``test``, ``eval`` and ``save`` of a mesh are ``BaseExecutor``'s,
+  shared by both.
 - Under ``--checkify`` a single train step is checked for non-finite
   losses and gradients (``_optimizer_step``).
 """
@@ -51,9 +56,10 @@ from list_tpu_torch.device import resolve_device
 from list_tpu_torch.eval.metrics import eval_mesh, eval_pointcloud
 from list_tpu_torch.ops.band import (BandGrid, band_encode, fetch_grid_f32,
                                      mark_ready)
-from list_tpu_torch.ops.dense_grid import dense_grid_slabs
+from list_tpu_torch.ops.dense_grid import dense_grid_slabs, disn_grid_sdf
 from list_tpu_torch.ops.grid import create_grid_points_from_bounds
-from list_tpu_torch.ops.losses import chamfer_loss, occupancy_loss, sdf_loss
+from list_tpu_torch.ops.losses import (chamfer_loss, occupancy_loss, sdf_loss,
+                                      weighted_l1_sdf_loss)
 from list_tpu_torch.parallel.mesh import shard_batch
 from list_tpu_torch.train.state import make_optimizer
 from list_tpu_torch.utils.meshing import generate_mesh
@@ -224,6 +230,122 @@ class BaseExecutor:
         return None, {k: torch.stack([s[k] for s in steps])
                       for k in steps[0]}
 
+    # -- meshes (LIST, DISN) -------------------------------------------------
+    def _init_mesh(self, config) -> None:
+        """The grid and wire settings of an executor that serves meshes."""
+        self.test_pointnum = config.test_pointnum
+        self.sdf_scale = config.sdf_scale
+        self.bb_min = config.bb_min
+        self.bb_max = config.bb_max
+        self.vox_res = config.vox_res
+        self.eval_fn = eval_mesh
+
+    def _wire(self, fetch_dtype, fetch_mode):
+        if fetch_dtype is None:
+            fetch_dtype = getattr(self.config, 'fetch_dtype', 'float32')
+        if fetch_mode is None:
+            fetch_mode = getattr(self.config, 'fetch_mode', 'grid')
+        return fetch_dtype, fetch_mode
+
+    def _finish(self, grid, fetch_dtype, fetch_mode):
+        """The raw grid -> the wire's: the ``sdf_scale`` divide, the wire
+        cast and in band mode ``band_encode`` (the span
+        ``request.finish``)."""
+        with span('request.finish', self.device):
+            wire = (torch.bfloat16 if fetch_dtype == 'bfloat16'
+                    else torch.float32)
+            grid = (grid / self.sdf_scale).to(wire)
+            if fetch_mode == 'band':
+                return BandGrid(band_encode(grid), grid, self.vox_res,
+                                fetch_dtype)
+            return grid
+
+    def _request(self, rgb_image: np.ndarray,
+                 trans_mat: Optional[np.ndarray], device_out: bool,
+                 fetch_dtype: Optional[str], fetch_mode: Optional[str],
+                 decode: Callable):
+        """One image's mesh request (``predict_grid``): the image (and a
+        camera) to the device, ``model.encode``, ``decode(enc, img)`` ->
+        (raw (R, R, R) grid, None or the wire mode it forces), the wire
+        (``_finish``) -> the f32 host grid, or with ``device_out`` the
+        device result for ``fetch_grid_f32`` (a ``BandGrid`` in band mode,
+        else the wire-dtype grid).
+
+        ``timings`` gets ``encode_s`` and ``decode_s`` (the fetch
+        included) from the host clock around synchronized phases; with
+        ``device_out`` on the card the call returns without waiting for
+        the device, its result carries the CUDA events around the encode
+        and the decode (``utils.spans.DeviceSpans``), and the two times
+        reach ``timings`` when the result is fetched.
+
+        The call is the span ``request.launch`` (this thread's time), with
+        the children ``request.upload`` (the image's copy to the device,
+        which waits for the work queued before it), ``request.encode``,
+        the decode's phases (``ops/dense_grid.py``) and
+        ``request.finish``; a device result carries it as
+        ``request_span``, the parent of its fetch's ``request.fetch``."""
+        with span('request.launch') as req:
+            fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
+            self.model.eval()
+            with span('request.upload'):
+                img = torch.as_tensor(np.asarray(rgb_image),
+                                      dtype=torch.float32, device=self.device)
+                tm = (None if trans_mat is None else torch.as_tensor(
+                    np.asarray(trans_mat), dtype=torch.float32,
+                    device=self.device))
+            spans = self._spans(device_out)
+            t0 = time.perf_counter()
+            with span('request.encode'):
+                enc = self.model.encode(img, tm)
+            if spans is None:
+                self._sync()
+            else:
+                spans.mark()
+            t1 = time.perf_counter()
+            grid, forced = decode(enc, img)
+            out = self._finish(grid, fetch_dtype, forced or fetch_mode)
+            if device_out:
+                out.request_span = req
+            if spans is not None:
+                return mark_ready(out, spans)
+            if not device_out:
+                out = fetch_grid_f32(out)
+            self._sync()
+            self.timings.update(encode_s=t1 - t0,
+                                decode_s=time.perf_counter() - t1)
+            return out
+
+    def _spans(self, device_out: bool) -> Optional[DeviceSpans]:
+        """Under ``device_out`` on the card: the call's CUDA events, its
+        start marked, and its stale times dropped from ``timings`` (the
+        fetch writes them); else None (synchronized host clock)."""
+        if not (device_out and self.device.type == 'cuda'):
+            return None
+        self.timings.pop('encode_s', None)
+        self.timings.pop('decode_s', None)
+        spans = DeviceSpans(self.device, self.timings)
+        spans.mark()
+        return spans
+
+    def test(self, batch, eval_pred: bool = False):
+        img = batch['rgb_image']
+        mesh_gt = batch.get('gt_mesh')
+        pred_values = self.predict_grid(img, batch.get('transmat'))
+        pred_mesh = generate_mesh(pred_values, self.bb_min, self.bb_max,
+                                  as_trimesh_obj=True,
+                                  renorm=getattr(self.config, 'mesh_renorm',
+                                                 'reference'))
+        eval_score = (self.eval(pred_mesh, mesh_gt)
+                      if eval_pred and mesh_gt is not None else {})
+        return [pred_mesh, pred_values], eval_score
+
+    def eval(self, pred, gt) -> Dict[str, float]:
+        return self.eval_fn(pred, gt, self.bb_min, self.bb_max)
+
+    def save(self, batch, pred, fname: str):
+        pred[0].export(fname + '_pred.obj')
+
+
 
 class CoarseNetExecutor(BaseExecutor):
     """Stage-1 executor."""
@@ -290,12 +412,7 @@ class LISTExecutor(BaseExecutor):
                  decode_devices: Optional[Sequence] = None):
         super().__init__(config, model, device)
         self.compute_dtype = compute_dtype
-        self.test_pointnum = config.test_pointnum
-        self.sdf_scale = config.sdf_scale
-        self.bb_min = config.bb_min
-        self.bb_max = config.bb_max
-        self.vox_res = config.vox_res
-        self.eval_fn = eval_mesh
+        self._init_mesh(config)
         self.decode_devices = self._split_devices(decode_devices)
 
     def _split_devices(self, devices) -> List[torch.device]:
@@ -349,13 +466,6 @@ class LISTExecutor(BaseExecutor):
             return None, 0
         return slab, head
 
-    def _wire(self, fetch_dtype, fetch_mode):
-        if fetch_dtype is None:
-            fetch_dtype = getattr(self.config, 'fetch_dtype', 'float32')
-        if fetch_mode is None:
-            fetch_mode = getattr(self.config, 'fetch_mode', 'grid')
-        return fetch_dtype, fetch_mode
-
     def _decode(self, enc, slab, use_pallas) -> torch.Tensor:
         """The dense (R, R, R) raw SDF of one image's encoding, over
         ``decode_devices``: device i of N decodes x rows
@@ -388,19 +498,6 @@ class LISTExecutor(BaseExecutor):
                     parts[i].append(next(slabs[i]))
         return torch.cat([torch.cat(p).to(self.device) for p in parts])
 
-    def _finish(self, grid, fetch_dtype, fetch_mode):
-        """The raw grid -> the wire's: the ``sdf_scale`` divide, the wire
-        cast and in band mode ``band_encode`` (the span
-        ``request.finish``)."""
-        with span('request.finish', self.device):
-            wire = (torch.bfloat16 if fetch_dtype == 'bfloat16'
-                    else torch.float32)
-            grid = (grid / self.sdf_scale).to(wire)
-            if fetch_mode == 'band':
-                return BandGrid(band_encode(grid), grid, self.vox_res,
-                                fetch_dtype)
-            return grid
-
     @torch.inference_mode()
     def predict_grid(self, rgb_image: np.ndarray,
                      trans_mat: Optional[np.ndarray] = None,
@@ -408,75 +505,23 @@ class LISTExecutor(BaseExecutor):
                      device_out: bool = False,
                      fetch_dtype: Optional[str] = None,
                      fetch_mode: Optional[str] = None):
-        """Dense (R, R, R) SDF field for one image: the f32 host grid, or
-        with ``device_out`` the device result for ``fetch_grid_f32`` (a
-        ``BandGrid`` in band mode, else the wire-dtype grid).  Band applies
-        to the dense path only: the chunked fallback returns the grid.
-
-        ``timings`` gets ``encode_s`` and ``decode_s`` (the fetch
-        included) from the host clock around synchronized phases; with
-        ``device_out`` on the card the call returns without waiting for
-        the device, its result carries the CUDA events around the encode
-        and the decode (``utils.spans.DeviceSpans``), and the two times
-        reach ``timings`` when the result is fetched.
-
-        The call is the span ``request.launch`` (this thread's time), with
-        the children ``request.upload`` (the image's copy to the device,
-        which waits for the work queued before it), ``request.encode``,
-        the decode's phases (``ops/dense_grid.py``) and
-        ``request.finish``; a device result
-        carries it as ``request_span``, the parent of its fetch's
-        ``request.fetch``."""
-        with span('request.launch') as req:
-            fetch_dtype, fetch_mode = self._wire(fetch_dtype, fetch_mode)
-            self.model.eval()
-            with span('request.upload'):
-                img = torch.as_tensor(np.asarray(rgb_image),
-                                      dtype=torch.float32, device=self.device)
-                tm = (None if trans_mat is None else torch.as_tensor(
-                    np.asarray(trans_mat), dtype=torch.float32,
-                    device=self.device))
+        """Dense (R, R, R) SDF field for one image (``_request``): encode,
+        then the dense decode over ``decode_devices`` (``fast``, by default
+        ``--fast_grid`` for one image, where ``_dense_plan`` has a slab),
+        else the chunked decoder, whose grid takes the ``grid`` wire (band
+        applies to the dense path only)."""
+        def decode(enc, img):
+            nonlocal fast
             if fast is None:
                 fast = bool(getattr(self.config, 'fast_grid', 1)) \
                     and img.shape[0] == 1
             slab, use_pallas = self._dense_plan(len(self.decode_devices))
-            spans = self._spans(device_out)
-            t0 = time.perf_counter()
-            with span('request.encode'):
-                enc = self.model.encode(img, tm)
-            if spans is None:
-                self._sync()
-            else:
-                spans.mark()
-            t1 = time.perf_counter()
             if fast and slab is not None:
-                out = self._finish(self._decode(enc, slab, use_pallas),
-                                   fetch_dtype, fetch_mode)
-            else:
-                out = self._finish(self._chunked_decode(enc), fetch_dtype,
-                                   'grid')
-            if device_out:
-                out.request_span = req
-            if spans is not None:
-                return mark_ready(out, spans)
-            if not device_out:
-                out = fetch_grid_f32(out)
-            self._sync()
-            self.timings.update(encode_s=t1 - t0,
-                                decode_s=time.perf_counter() - t1)
-            return out
+                return self._decode(enc, slab, use_pallas), None
+            return self._chunked_decode(enc), 'grid'
 
-    def _spans(self, device_out: bool) -> Optional[DeviceSpans]:
-        """Under ``device_out`` on the card: the call's CUDA events, its
-        start marked, and its stale times dropped from ``timings`` (the
-        fetch writes them); else None (synchronized host clock)."""
-        if not (device_out and self.device.type == 'cuda'):
-            return None
-        self.timings.pop('encode_s', None)
-        self.timings.pop('decode_s', None)
-        spans = DeviceSpans(self.device, self.timings)
-        spans.mark()
-        return spans
+        return self._request(rgb_image, trans_mat, device_out, fetch_dtype,
+                             fetch_mode, decode)
 
     @torch.inference_mode()
     def predict_grid_batch(self, rgb_images: np.ndarray,
@@ -586,20 +631,62 @@ class LISTExecutor(BaseExecutor):
 
             return self._optimizer_step(losses, t0)
 
-    def test(self, batch, eval_pred: bool = False):
-        img = batch['rgb_image']
-        mesh_gt = batch.get('gt_mesh')
-        pred_values = self.predict_grid(img, batch.get('transmat'))
-        pred_mesh = generate_mesh(pred_values, self.bb_min, self.bb_max,
-                                  as_trimesh_obj=True,
-                                  renorm=getattr(self.config, 'mesh_renorm',
-                                                 'reference'))
-        eval_score = (self.eval(pred_mesh, mesh_gt)
-                      if eval_pred and mesh_gt is not None else {})
-        return [pred_mesh, pred_values], eval_score
 
-    def eval(self, pred, gt) -> Dict[str, float]:
-        return self.eval_fn(pred, gt, self.bb_min, self.bb_max)
+class DISNExecutor(BaseExecutor):
+    """DISN (``models/disn.py``).  ``train`` takes the weighted L1 SDF
+    loss (``ops/losses.py``) of a host batch dict ('rgb_image', 'points',
+    'values', optional per-sample 'trans_mat'; the configuration's camera
+    where absent).  ``predict_grid`` encodes one image and decodes its
+    grid over x slabs (``ops/dense_grid.py`` ``disn_grid_sdf``: the
+    decode's operands in ``compute_dtype``), then takes LIST's wire
+    (``_request``).  A slab is the most x rows that hold at most
+    ``SLAB_QUERIES`` queries: the whole grid up to 128^3.  In slabs of 16
+    x rows the 128^3 decode launched some 320 small operations, and while
+    the mesh cell's fetch and mesh threads held the interpreter lock the
+    card waited between them: on one H100, 13.4-14.9 meshes a second, the
+    decode span's 90th percentile 65-78 ms; in one slab 15.2-16.0 and
+    60-64 ms (PERF.md)."""
 
-    def save(self, batch, pred, fname: str):
-        pred[0].export(fname + '_pred.obj')
+    SLAB_QUERIES = 128 ** 3
+
+    def __init__(self, config, model: torch.nn.Module, device=None,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(config, model, device)
+        self.compute_dtype = compute_dtype
+        self._init_mesh(config)
+
+    @torch.inference_mode()
+    def predict_grid(self, rgb_image: np.ndarray,
+                     trans_mat: Optional[np.ndarray] = None,
+                     device_out: bool = False,
+                     fetch_dtype: Optional[str] = None,
+                     fetch_mode: Optional[str] = None):
+        """Dense (R, R, R) SDF field for one image (``_request``)."""
+        return self._request(rgb_image, trans_mat, device_out, fetch_dtype,
+                             fetch_mode, self._decode)
+
+    def _decode(self, enc, img=None):
+        R = self.vox_res
+        slab = max(s for s in range(1, R + 1) if R % s == 0
+                   and (s == 1 or s * R * R <= self.SLAB_QUERIES))
+        return disn_grid_sdf(self.model, enc, R, slab, self.compute_dtype,
+                             self.bb_min, self.bb_max), None
+
+    def train(self, batch, calc_loss: bool = True):
+        """One optimizer step -> (None, {'sdf_loss'}); the spans ``step``
+        and ``step.batch`` as ``LISTExecutor.train``'s."""
+        with span('step'):
+            with span('step.batch'):
+                keys = ('rgb_image', 'points', 'values', 'trans_mat')
+                keep = self._rank_batch({k: batch[k] for k in keys
+                                         if k in batch})
+                t0 = time.perf_counter()
+                dev = self._to_device(keep)
+
+            def losses():
+                pred = self.model(dev['rgb_image'], dev['points'],
+                                  dev.get('trans_mat'))
+                return {'sdf_loss': weighted_l1_sdf_loss(
+                    pred, dev['values'], self.sdf_scale)}
+
+            return self._optimizer_step(losses, t0)

@@ -28,6 +28,19 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIGMAS = (0.003, 0.01, 0.07)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Each test on one intra-op thread, restored after: the port's FPS is
+    thousands of small operations a cloud, and beside the other test
+    workers torch's threads wait on one another; the 50,000-point case
+    took 724 s there against 2.6 s alone on one thread, with the same
+    indices."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _h5(fn):
     """{dataset: (dtype, shape, compression, bytes)} of an h5 file."""
     with h5py.File(fn, 'r') as f:
