@@ -184,13 +184,13 @@ def routed_norms(layers: Sequence[int], batch: int, R: int) -> list:
 
 
 def launches(on_card: bool, k2: int = 0, dx: int = 0, dk: int = 0,
-             k1: int = 0, k4: int = 0, bn: int = 0, bn_bwd: int = 0
-             ) -> Dict[str, int]:
+             k1: int = 0, k4: int = 0, bn: int = 0, bn_bwd: int = 0,
+             percep: int = 0) -> Dict[str, int]:
     """The launch counts a path must give: these on the card, none on the
     CPU (the wrappers take their plain versions there)."""
     n = dict(conv3x3x3=k2, conv3x3x3_dx=dx, conv3x3x3_dk=dk,
              fused_stack_head=k1, fused_fc0_mlp=k4, batch_norm=bn,
-             batch_norm_bwd=bn_bwd)
+             batch_norm_bwd=bn_bwd, percep_sample=percep)
     return n if on_card else {k: 0 for k in n}
 
 
@@ -210,11 +210,11 @@ def step_launches(on_card: bool, layers: Sequence[int], remat: bool,
 def decode_launches(on_card: bool, R: int, slab: int, head: int,
                     k2: int = 0, bn: int = 0) -> Dict[str, int]:
     """A dense R^3 decode in slabs of ``slab`` with head ``head`` (1: K4,
-    2: K1, 0: the plain head), beside ``k2`` encoder convolutions and
-    ``bn`` eval BatchNorms."""
+    2: K1, 0: the plain head) and one perceptual sample a slab, beside
+    ``k2`` encoder convolutions and ``bn`` eval BatchNorms."""
     per = R // slab
     return launches(on_card, k2=k2, k1=per if head == 2 else 0,
-                    k4=per if head == 1 else 0, bn=bn)
+                    k4=per if head == 1 else 0, bn=bn, percep=per)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -387,7 +387,8 @@ def mesh_phase(ex, dev, s: Sizes, rng, pool, x: dict):
     check_launches(launch_counts(), launches(
         on_card, k2=s.batch_reps * convs, k1=one['fused_stack_head'] * n,
         k4=one['fused_fc0_mlp'] * n, bn=s.batch_reps * len(routed_norms(
-            ex.model.im_enc_layers, s.batch_images, R))), 'batched sweep')
+            ex.model.im_enc_layers, s.batch_images, R)),
+        percep=one['percep_sample'] * n), 'batched sweep')
     del grids
 
     x.update(n_queries=R ** 3, fetch_mode=ex.config.fetch_mode,

@@ -23,11 +23,15 @@ Run from the repository root.  Phases (any failure exits non-zero):
    takes (1, 16 and 32 channels): the training forward and backward at
    batch 8 and the eval forward at batch 1 against float64 within a few
    f32 round-offs, bit-identical reruns, launches counted, timed beside
-   cuDNN and ``torch.var_mean`` + ``F.batch_norm``.
+   cuDNN and ``torch.var_mean`` + ``F.batch_norm``.  The perceptual sample
+   (``ops/cuda/percep.py``) at a 128^3 slab and C = 512: one launch, held
+   to float64 at the plain version's pixels, timed beside the plain
+   version and ``F.grid_sample`` (DISN's expanded views timed too).
 4. Inference path: the full-width default LIST (vox_res 128) with seeded
    random weights serves ``--requests`` seeded 224x224 images through
    ``LISTExecutor.test(..., eval_pred=True)`` (dense 128^3 SDF -> marching
-   cubes -> metrics against a sphere).  Then no waits: after a warm call
+   cubes -> metrics against a sphere), one perceptual sample a slab of
+   each request asserted.  Then no waits: after a warm call
    each, an encode, a 128^3 and a 256^3 dense decode and a stage-2 train
    step (batch 8 x 32,768 queries, ``--remat_save_samples 1``) run under
    ``torch.cuda.set_sync_debug_mode('error')`` and an upload probe: any
@@ -69,7 +73,8 @@ Run from the repository root.  Phases (any failure exits non-zero):
    cubes and the containment IoU on 200,000 points; the gate (finite
    losses, the final sdf_loss under half the first, more than 10
    vertices, IoU > 0.7) and the launches of every step (K2 14, of which
-   dx 4, K3 5) and of the mesh (K2 5, K1 1) asserted; one ``overfit``
+   dx 4, K3 5) and of the mesh (K2 5, K1 1, the perceptual sample 1)
+   asserted; one ``overfit``
    line.
 8. Training driver: the full-width CoarseNet (ResNet18 at 224^2, TreeGCN
    to 4,096 points) takes 1 warm and 3 timed ``CoarseNetExecutor.train``
@@ -125,7 +130,7 @@ Run from the repository root.  Phases (any failure exits non-zero):
    grid with 2 K1 launches (each timed).
 11. Prints one JSON line of kernel numbers (K2 and BatchNorm once per
     path: per request at batch 1, and per train step at batch 8; K4 per
-    mesh of the sweep;
+    mesh of the sweep; the perceptual sample per slab of 128^3;
     ``driver_launches`` and ``pix3d_launches``: the warm-started LIST
     epoch's counts on the synthetic and the Pix3D data), then the device
     line.
@@ -502,6 +507,130 @@ def bn_phase(dev, batch_norm, reps=10):
     return step, _total(evals, 'request (4 launches, batch 1)')
 
 
+# the perceptual sample's checked slab: LIST's learned-camera stand-in
+# (pixels inside the map, depth near 1), as tests/test_torch_cuda.py's
+PERCEP_CAMERA = [[60.0, 1.0, 0.1], [2.0, -60.0, 0.05], [0.5, 0.3, 0.02],
+                 [68.0, 68.0, 1.0]]
+
+
+def percep_coords(R, dev, order='list'):
+    """One R^3 slab's query coordinates as the decodes build them: LIST's
+    (2 z, 2 y, 2 x), materialised; DISN's (x, y, z), expanded views."""
+    step = 1.0 / (R - 1)
+    ar = torch.arange(R, dtype=torch.float32, device=dev) * step - 0.5
+    fx = ar[:, None, None].expand(R, R, R)
+    fy = ar[None, :, None].expand(R, R, R)
+    fz = ar[None, None, :].expand(R, R, R)
+    return (2.0 * fz, 2.0 * fy, 2.0 * fx) if order == 'list' \
+        else (fx, fy, fz)
+
+
+def _percep_f64(percep, flat, t, ps, outs, chunk=2 ** 17):
+    """(max |out - ref| for each of ``outs``, the per-element bound's
+    worst use for the first, max |ref|) over every query and channel, in
+    chunks of queries: ref the bilinear in float64 at the plain version's
+    f32 pixels; the bound 2^-8 |ref| + 2^-20 max |map| (one bf16 round-off
+    of the f32 bilinear)."""
+    ms = percep.PERCEP_MAP
+    xpix, ypix = percep.pixel_coords(t, *ps)
+    x, y = xpix.reshape(-1).double(), ypix.reshape(-1).double()
+    x0, y0 = x.floor().long(), y.floor().long()
+    x1, y1 = (x0 + 1).clamp(max=ms - 1), (y0 + 1).clamp(max=ms - 1)
+    wx, wy = (x - x0)[:, None], (y - y0)[:, None]
+    m = flat.double()
+    floor = 2.0 ** -20 * float(m.abs().max())
+    errs, use, ref_max = [0.0] * len(outs), 0.0, 0.0
+    for a in range(0, x.numel(), chunk):
+        b = slice(a, a + chunk)
+        ref = ((1 - wy[b]) * ((1 - wx[b]) * m[y0[b] * ms + x0[b]]
+                              + wx[b] * m[y0[b] * ms + x1[b]])
+               + wy[b] * ((1 - wx[b]) * m[y1[b] * ms + x0[b]]
+                          + wx[b] * m[y1[b] * ms + x1[b]]))
+        for i, out in enumerate(outs):
+            e = (out[b].double() - ref).abs()
+            errs[i] = max(errs[i], float(e.max()))
+            if i == 0:
+                use = max(use, float((e / (2.0 ** -8 * ref.abs()
+                                           + floor)).max()))
+        ref_max = max(ref_max, float(ref.abs().max()))
+    return errs, use, ref_max
+
+
+def _percep_check(percep, flat, t, ps, dev):
+    """One kernel call on the coordinates ``ps`` held to float64 and to
+    the plain version over all n x C: launched once, finite, each element
+    within one bf16 round-off of float64 (plus 2^-20 max |map|), its
+    largest error at most the plain version's plus one round-off of
+    max |f64|, and max |kernel - plain| within both (the card test's
+    bounds, ``tests/test_torch_cuda.py`` ``-k percep``)."""
+    bf = torch.bfloat16
+    before = percep.launches
+    got = percep.percep_sample(flat, t, *ps, bf)
+    torch.cuda.synchronize(dev)
+    launched = percep.launches - before
+    plain = percep.percep_sample_plain(flat, t, *ps, bf)
+    (err, plain_err), use, ref_max = _percep_f64(percep, flat, t, ps,
+                                                 (got, plain))
+    scale = float(flat.abs().max())
+    gap = float((got.float() - plain.float()).abs().max())
+    ok = (launched == 1 and bool(torch.isfinite(got.float()).all())
+          and use <= 1.0 and err <= plain_err + 2.0 ** -8 * ref_max
+          and gap <= plain_err + 2.0 ** -8 * ref_max + 2.0 ** -20 * scale)
+    del got, plain
+    return dict(launches=launched, max_abs_err=gap, f64_err=err,
+                plain_f64_err=plain_err, f64_bound_use=use, ok=ok)
+
+
+def percep_phase(dev, percep, R=128, C=512):
+    """The perceptual sample (``ops/cuda/percep.py``) at a 128^3 slab and
+    C = 512, in LIST's materialised coordinates and in DISN's stride-0
+    expanded views (``_percep_check``: one launch each, held to float64 and
+    to the plain version over every query and channel), timed beside the
+    plain version and one ``F.grid_sample`` over the channels-first bf16
+    map (border padding, corners aligned), which the port never calls."""
+    ms = percep.PERCEP_MAP
+    bf = torch.bfloat16
+    g = torch.Generator(device='cpu').manual_seed(13)
+    flat = torch.randn(ms * ms, C, generator=g).to(dev, bf)
+    t = torch.tensor(PERCEP_CAMERA, device=dev)
+    ps = percep_coords(R, dev)
+    views = percep_coords(R, dev, 'disn')
+    checks = dict(list=_percep_check(percep, flat, t, ps, dev),
+                  disn_views=_percep_check(percep, flat, t, views, dev))
+    ok = all(c['ok'] for c in checks.values())
+    xpix, ypix = percep.pixel_coords(t, *ps)
+    grid = (torch.stack([xpix, ypix], -1).reshape(1, 1, -1, 2)
+            * (2.0 / (ms - 1)) - 1.0).to(bf)
+    img = flat.t().reshape(1, C, ms, ms).contiguous()
+
+    def library():
+        return F.grid_sample(img, grid, mode='bilinear',
+                             padding_mode='border', align_corners=True)
+    row = dict(shape=f'n={R ** 3} C={C} (LIST order; DISN views checked '
+                     'and timed too)', calls=1,
+               launches=sum(c['launches'] for c in checks.values()),
+               max_abs_err=max(c['max_abs_err'] for c in checks.values()),
+               checks=checks,
+               tol='per element <= 2^-8 |f64| + 2^-20 max|map|; f64 err <= '
+                   'plain f64 err + 2^-8 max|f64|; |kernel - plain| <= plain '
+                   'f64 err + 2^-8 max|f64| + 2^-20 max|map|; all n x C',
+               ok=ok,
+               ms=time_ms(lambda: percep.percep_sample(flat, t, *ps, bf),
+                          20, device=dev),
+               ms_disn_views=time_ms(lambda: percep.percep_sample(
+                   flat, t, *views, bf), 20, device=dev),
+               plain_ms=time_ms(lambda: percep.percep_sample_plain(
+                   flat, t, *ps, bf), 3, 1, device=dev),
+               library_ms=time_ms(library, 10, device=dev),
+               library='F.grid_sample bfloat16',
+               bound_ms=percep.bound_ms(R ** 3, C), bound_by='bytes')
+    print('kernel percep_sample', json.dumps(row), flush=True)
+    if not ok:
+        fail('percep_sample disagrees with float64 or the plain version '
+             'beyond its tolerance, or launched other than once a call')
+    return row
+
+
 def _uniform(g, dev):
     """Seeded uniform(-scale, scale) tensors on the card."""
     def u(*shape, scale=1.0, dt=torch.float32):
@@ -677,7 +806,8 @@ def mlp_cases(fused_fc0, args, n):
 NORMS, NORMS_FWD = 4, 2
 STEP_LAUNCHES = dict(conv3x3x3=14, conv3x3x3_dx=4, conv3x3x3_dk=5,
                      fused_stack_head=0, fused_fc0_mlp=0,
-                     batch_norm=2 * NORMS_FWD, batch_norm_bwd=NORMS)
+                     batch_norm=2 * NORMS_FWD, batch_norm_bwd=NORMS,
+                     percep_sample=0)
 # a step under a process group of more than one rank: BatchNorm takes the
 # global batch's moments in plain PyTorch (models/norm.py)
 GROUP_STEP_LAUNCHES = dict(STEP_LAUNCHES, batch_norm=0, batch_norm_bwd=0)
@@ -1236,7 +1366,7 @@ def sweep_phase(args, stencil3d, fused_fc0):
     torch.cuda.empty_cache()
 
     first = sweep_run(cfg, '--use_pallas 1', stencil3d, fused_fc0)
-    want = dict(NO_LAUNCHES, conv3x3x3=5 * SWEEP_SHAPES,
+    want = decodes(conv3x3x3=5 * SWEEP_SHAPES,
                 fused_fc0_mlp=2 * SWEEP_SHAPES,
                 batch_norm=NORMS * SWEEP_SHAPES)
     if first['launches'] != want or first['fresh_meshes'] != SWEEP_SHAPES:
@@ -1250,7 +1380,7 @@ def sweep_phase(args, stencil3d, fused_fc0):
     second = sweep_run(cfg2, '--use_pallas -1 --infer_batch 2', stencil3d,
                        fused_fc0)
     groups = {i // 2 for i in SWEEP_DROPPED}
-    want = dict(NO_LAUNCHES, conv3x3x3=5 * len(groups),
+    want = decodes(conv3x3x3=5 * len(groups),
                 fused_stack_head=len(SWEEP_DROPPED),
                 batch_norm=NORMS * len(groups))
     if second['launches'] != want \
@@ -1265,11 +1395,21 @@ def sweep_phase(args, stencil3d, fused_fc0):
 COARSE_BATCH = 16  # the README's stage-1 recipe
 NO_LAUNCHES = dict(conv3x3x3=0, conv3x3x3_dx=0, conv3x3x3_dk=0,
                    fused_stack_head=0, fused_fc0_mlp=0, batch_norm=0,
-                   batch_norm_bwd=0)
+                   batch_norm_bwd=0, percep_sample=0)
+
+
+def decodes(**counts) -> dict:
+    """NO_LAUNCHES with ``counts``, and one perceptual sample for each
+    head launch (K1 or K4): every slab of a LIST dense decode on the card
+    launches one of each."""
+    want = dict(NO_LAUNCHES, **counts)
+    want['percep_sample'] = want['fused_stack_head'] + want['fused_fc0_mlp']
+    return want
+
+
 # a testlist shape of stage 2: one encode (K2 x5, the eval BatchNorm x4)
-# and one dense decode (K1)
-TEST_LAUNCHES = dict(NO_LAUNCHES, conv3x3x3=5, fused_stack_head=1,
-                     batch_norm=NORMS)
+# and one dense decode (K1 and the perceptual sample)
+TEST_LAUNCHES = decodes(conv3x3x3=5, fused_stack_head=1, batch_norm=NORMS)
 
 
 def stage1_phase(args, stencil3d, fused_fc0):
@@ -1714,7 +1854,7 @@ def pix3d_phase(args, stencil3d, fused_fc0, card_line):
     del trained, split
     torch.cuda.empty_cache()
     sweep = sweep_run(c3, 'pix3d', stencil3d, fused_fc0, shapes=PIX3D_TEST)
-    want = dict(NO_LAUNCHES, conv3x3x3=5 * PIX3D_TEST,
+    want = decodes(conv3x3x3=5 * PIX3D_TEST,
                 fused_stack_head=PIX3D_TEST, batch_norm=NORMS * PIX3D_TEST)
     if sweep['launches'] != want or sweep['fresh_meshes'] != PIX3D_TEST:
         fail(f'pix3d sweep: launches {sweep["launches"]} for '
@@ -1754,9 +1894,9 @@ DIST_STEPS = 2  # timed 2-rank train steps, after one warm step
 DIST_SHAPES = SWEEP_SHAPES // DIST_WORLD  # each rank's strided test shapes
 # a rank's sweep of its 4 fresh shapes: one encode (K2 x5, the eval
 # BatchNorm x4) and one K1 each
-DIST_SWEEP_LAUNCHES = dict(NO_LAUNCHES, conv3x3x3=5 * DIST_SHAPES,
-                           fused_stack_head=DIST_SHAPES,
-                           batch_norm=NORMS * DIST_SHAPES)
+DIST_SWEEP_LAUNCHES = decodes(conv3x3x3=5 * DIST_SHAPES,
+                              fused_stack_head=DIST_SHAPES,
+                              batch_norm=NORMS * DIST_SHAPES)
 SPLIT = ('cuda:0', 'cuda:0')  # the split decode's devices on one card
 
 
@@ -2026,8 +2166,8 @@ def split_decode_check(cfg, model, img, fused_fc0, stencil3d, card_line):
                bitwise=bool(np.array_equal(got, ref)), max_abs_err=err,
                tol=tol, same_slab_ranges_bitwise=same_slab)
     print('split decode', json.dumps(rec), flush=True)
-    want = dict(NO_LAUNCHES, conv3x3x3=5, fused_stack_head=len(SPLIT),
-                batch_norm=NORMS)
+    want = decodes(conv3x3x3=5, fused_stack_head=len(SPLIT),
+                   batch_norm=NORMS)
     if counts != want:
         fail(f'split decode: launches {counts}, expected {want}')
     if not (np.isfinite(got).all() and err <= tol and same_slab):
@@ -2442,10 +2582,10 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
                        no_waits_bitwise=bool(torch.equal(gw, g)),
                        max_abs_err=err)
             del g, g1, gt_, gw
-        want = dict(NO_LAUNCHES, fused_stack_head=(CARDS_DECODE_REPS + 2)
-                    * R // plan[0])
-        want1 = dict(NO_LAUNCHES, fused_stack_head=(CARDS_DECODE_REPS + 2)
-                     * R // plan1[0])
+        want = decodes(fused_stack_head=(CARDS_DECODE_REPS + 2)
+                       * R // plan[0])
+        want1 = decodes(fused_stack_head=(CARDS_DECODE_REPS + 2)
+                        * R // plan1[0])
         print('cards decode', json.dumps(rec), flush=True)
         if rec['split_launches'] != want or rec['one_card_launches'] != want1:
             fail(f'{R}^3 decode: launches {rec["split_launches"]} split and '
@@ -2499,8 +2639,8 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
                                 and np.array_equal(mesh.faces, mesh1.faces)),
             vertices=len(mesh.vertices), scores=score,
             scores_one_card=score1, launches=counts)
-        want = dict(NO_LAUNCHES, conv3x3x3=5 * 2,
-                    fused_stack_head=n * 3, batch_norm=NORMS * 2)
+        want = decodes(conv3x3x3=5 * 2, fused_stack_head=n * 3,
+                       batch_norm=NORMS * 2)
         if counts != want:
             fail(f'--mesh_shape {list(s)}: a batch of 2 and a test '
                  f'launched {counts}, expected {want}')
@@ -2533,9 +2673,9 @@ def cards_sweep_phase(devs, root, ckpt, stencil3d, fused_fc0):
                                        cfg.test_checkpoint))
         rec = sweep_run(cfg, label, stencil3d, fused_fc0)
         k1 = 1 if not kw else n  # slab 128 on one card, 128 / n split
-        want = dict(NO_LAUNCHES, conv3x3x3=5 * SWEEP_SHAPES,
-                    fused_stack_head=k1 * SWEEP_SHAPES,
-                    batch_norm=NORMS * SWEEP_SHAPES)
+        want = decodes(conv3x3x3=5 * SWEEP_SHAPES,
+                       fused_stack_head=k1 * SWEEP_SHAPES,
+                       batch_norm=NORMS * SWEEP_SHAPES)
         if rec['launches'] != want:
             fail(f'sweep {label}: launches {rec["launches"]}, expected '
                  f'{want}')
@@ -2655,8 +2795,8 @@ def card_rank(args, stencil3d, fused_fc0):
     rec['sweep'] = sweep_run(None, f'rank {rank} of {args.cards}', stencil3d,
                              fused_fc0, shapes=shapes,
                              run=lambda: infer_torch.main(flags))
-    want = dict(NO_LAUNCHES, conv3x3x3=5 * shapes, fused_stack_head=shapes,
-                batch_norm=NORMS * shapes)
+    want = decodes(conv3x3x3=5 * shapes, fused_stack_head=shapes,
+                   batch_norm=NORMS * shapes)
     if rec['sweep']['launches'] != want:
         fail(f'rank {rank} sweep: launches {rec["sweep"]["launches"]}, '
              f'expected {want}')
@@ -2949,7 +3089,8 @@ def main():
         from list_tpu_torch.data import SyntheticSDFDataset, collate
         from list_tpu_torch.models import LIST
         from list_tpu_torch.ops.cuda import (KERNEL_SOURCES, batch_norm,
-                                             build, fused_fc0, stencil3d)
+                                             build, fused_fc0, percep,
+                                             stencil3d)
         from list_tpu_torch.ops.dense_grid import dense_grid_sdf
         from list_tpu_torch.train import LISTExecutor
         from list_tpu_torch.utils.meshio import make_icosphere
@@ -3009,6 +3150,9 @@ def main():
     torch.cuda.empty_cache()
     bn_train, bn_eval = bn_phase(dev, batch_norm)
     torch.cuda.empty_cache()
+    with torch.inference_mode():
+        percep_row = percep_phase(dev, percep)
+    torch.cuda.empty_cache()
 
     # ---- path phase: full-width LIST at 128^3 ------------------------------
     torch.manual_seed(args.seed)
@@ -3052,14 +3196,18 @@ def main():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print('inference path launches', json.dumps(launches),
           f'peak_device_gb {peak_gb:.2f}', flush=True)
-    if launches != dict(NO_LAUNCHES, conv3x3x3=5 * args.requests,
-                        fused_stack_head=launches['fused_stack_head'],
-                        batch_norm=NORMS * args.requests):
+    if launches != decodes(conv3x3x3=5 * args.requests,
+                           fused_stack_head=launches['fused_stack_head'],
+                           batch_norm=NORMS * args.requests):
         fail(f'inference path launches {launches}, expected conv3x3x3 '
-             f'{5 * args.requests}, batch_norm {NORMS * args.requests} '
-             'and no dx, dk or backward')
+             f'{5 * args.requests}, batch_norm {NORMS * args.requests}, '
+             'a perceptual sample a head launch and no dx, dk or backward')
     if launches['fused_stack_head'] < args.requests:
         fail('fused_stack_head was not launched for every request')
+    slabs = 128 // ex._dense_plan()[0]
+    if launches['percep_sample'] != slabs * args.requests:
+        fail(f'percep_sample: {launches["percep_sample"]} launches for '
+             f'{args.requests} requests of {slabs} slab(s)')
 
     # ---- no waits: warm encode, 128^3 and 256^3 decodes, train step ------
     no_waits = sync_phase(model, imgs[0], card_line)
@@ -3225,11 +3373,20 @@ def main():
              var_mean_ms=bn_train['var_mean_ms'],
              bound_ms=bn_train['bound_ms'], bound_by=bn_train['bound_by'],
              library_ms=bn_train['library_ms']),
+        dict(name='percep_sample', route='cuda', source=percep.SOURCE,
+             replaces=None, library=percep_row['library'],
+             launches=launches['percep_sample'],
+             per='slab (n = 128^3, C = 512)',
+             max_abs_err=percep_row['max_abs_err'], ms=percep_row['ms'],
+             plain_ms=percep_row['plain_ms'], bound_ms=percep_row['bound_ms'],
+             bound_by=percep_row['bound_by'],
+             library_ms=percep_row['library_ms']),
     ]
     report = dict(card=card_line, kind=kind, kernels=kernels,
                   conv_inference=conv, conv_train=conv_train, dk=dk,
                   conv_gradients_on_card=grads_on_card, head=head, mlp=mlp,
                   batch_norm=dict(train=bn_train, request=bn_eval),
+                  percep_sample=percep_row,
                   requests=requests, peak_device_gb=peak_gb,
                   no_waits=no_waits,
                   small_input_err=ref_err, small_input_k4_err=k4_err,

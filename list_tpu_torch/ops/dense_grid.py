@@ -47,6 +47,8 @@ import numpy as np
 import torch
 
 from list_tpu_torch.ops.consts import device_const
+from list_tpu_torch.ops.cuda import percep as percep_cuda
+from list_tpu_torch.ops.cuda.percep import PERCEP_MAP
 from list_tpu_torch.ops.cuda.fused_fc0 import (fused_fc0_mlp,
                                                fused_stack_head,
                                                fused_stack_head_plain)
@@ -58,7 +60,6 @@ TAPS = ((0, (0, 0)), (0, (0, -1)), (0, (0, 1)), (0, (-1, 0)),
         (0, (1, 0)), (-1, (0, 0)), (1, (0, 0)))
 # x-tap variants of the coarse-projected path: (center, +x, -x)
 XTAPS = ((0, None), (1, None), (-1, None))
-PERCEP_MAP = 137
 
 
 # ---- static numpy plans (copies of the JAX package's) -----------------------
@@ -219,28 +220,10 @@ def percep_sample(flat_pm: torch.Tensor, t: torch.Tensor, p0: torch.Tensor,
     """The projected map ``flat_pm`` (``percep_maps``) at the queries
     (p0, p1, p2), each (S, R, R): (p0, p1, p2, 1) through the (4, 3) camera
     ``t`` with the perspective divide (+1e-8), clamped to the map, the
-    4-corner gather and the bilinear in ``dt`` -> (n, out)."""
-    ms = PERCEP_MAP
-    n = p0.numel()
-    u = p0 * t[0, 0] + p1 * t[1, 0] + p2 * t[2, 0] + t[3, 0]
-    v = p0 * t[0, 1] + p1 * t[1, 1] + p2 * t[2, 1] + t[3, 1]
-    d = p0 * t[0, 2] + p1 * t[1, 2] + p2 * t[2, 2] + t[3, 2]
-    xpix = (u / (d + 1e-8)).clamp(0.0, float(ms - 1))
-    ypix = (v / (d + 1e-8)).clamp(0.0, float(ms - 1))
-    x0i = torch.floor(xpix).long()
-    y0i = torch.floor(ypix).long()
-    x1i = (x0i + 1).clamp(max=ms - 1)
-    y1i = (y0i + 1).clamp(max=ms - 1)
-    wxf = (xpix - x0i.float()).reshape(n, 1).to(dt)
-    wyf = (ypix - y0i.float()).reshape(n, 1).to(dt)
-    idx = torch.cat([(y0i * ms + x0i).reshape(n),
-                     (y0i * ms + x1i).reshape(n),
-                     (y1i * ms + x0i).reshape(n),
-                     (y1i * ms + x1i).reshape(n)])
-    vals = flat_pm[idx].reshape(4, n, -1)
-    top = vals[0] * (1 - wxf) + vals[1] * wxf
-    bot = vals[2] * (1 - wxf) + vals[3] * wxf
-    return top * (1 - wyf) + bot * wyf
+    4-corner gather and the bilinear in ``dt`` -> (n, out).  On the card
+    one kernel launch (``ops/cuda/percep.py``: a bf16 or f32 map, the
+    bilinear in f32, rounded to bf16 once), on the CPU the plain version."""
+    return percep_cuda.percep_sample(flat_pm, t, p0, p1, p2, dt)
 
 
 def dense_grid_sdf(*args, **kwargs) -> torch.Tensor:

@@ -73,10 +73,10 @@ def test_counts_match_bench_py():
 
 def test_launch_counts_follow_the_code():
     """The launches a path must give: K2 5 a mesh, 14 a remat'd step (of
-    which dx 4) with K3 5; at 128^3 the voxel encoder's bn_0, bn_1, bn_3
-    and bn_4 on the BatchNorm kernels, at any batch (bn_5 has 64
-    channels), the training forward's at one channel only; none on the
-    CPU."""
+    which dx 4) with K3 5; one perceptual sample a decode's slab; at 128^3
+    the voxel encoder's bn_0, bn_1, bn_3 and bn_4 on the BatchNorm
+    kernels, at any batch (bn_5 has 64 channels), the training forward's
+    at one channel only; none on the CPU."""
     assert bench_torch.full_res_convs() == 5
     assert bench_torch.routed_norms(DEFAULT_IM_ENC_LAYERS, 8, 128) \
         == bench_torch.routed_norms(DEFAULT_IM_ENC_LAYERS, 1, 128) \
@@ -85,12 +85,12 @@ def test_launch_counts_follow_the_code():
     assert bench_torch.step_launches(True, (1, 1, 1, 1, 16), True, 8,
                                      128) == dict(
         conv3x3x3=14, conv3x3x3_dx=4, conv3x3x3_dk=5, fused_stack_head=0,
-        fused_fc0_mlp=0, batch_norm=4, batch_norm_bwd=3)
+        fused_fc0_mlp=0, batch_norm=4, batch_norm_bwd=3, percep_sample=0)
     assert bench_torch.step_launches(True, DEFAULT_IM_ENC_LAYERS, True, 8,
                                      128)['batch_norm_bwd'] == 4
     assert bench_torch.decode_launches(True, 256, 8, 2) == dict(
         conv3x3x3=0, conv3x3x3_dx=0, conv3x3x3_dk=0, fused_stack_head=32,
-        fused_fc0_mlp=0, batch_norm=0, batch_norm_bwd=0)
+        fused_fc0_mlp=0, batch_norm=0, batch_norm_bwd=0, percep_sample=32)
     assert set(bench_torch.decode_launches(False, 128, 128, 2,
                                            k2=5, bn=4).values()) == {0}
 

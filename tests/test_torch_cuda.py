@@ -432,6 +432,152 @@ def test_fps_on_the_card_is_the_cpus(cuda, n, k):
                                rtol=0, atol=0)
 
 
+# ---- the perceptual sample (ops/cuda/percep.py) ----------------------------
+
+# a LIST-like learned camera (pixels inside the map, depth near 1), DISN's
+# orthographic one (depth 1), and a wide one whose pixels run past both
+# edges of the map, so that the clamp and the clamped +1 corners are taken
+PERCEP_CAMERAS = dict(
+    learned=[[60.0, 1.0, 0.1], [2.0, -60.0, 0.05], [0.5, 0.3, 0.02],
+             [68.0, 68.0, 1.0]],
+    ortho=[[68.0, 0.0, 0.0], [0.0, -68.0, 0.0], [0.0, 0.0, 0.0],
+           [68.0, 68.0, 1.0]],
+    wide=[[150.0, 3.0, 0.05], [4.0, -150.0, 0.02], [1.0, 0.5, 0.01],
+          [68.0, 68.0, 1.0]])
+# (R, slab rows S, first row, C, coordinate order, camera, map dtype):
+# LIST's order at 128^3 and C = 512 (the mesh cells' slab), DISN's
+# expanded views, one 256^3 slab of 8, the map's edges, a tiny model's
+# width (C = 24: 3 vectors a row, fewer than a warp's lanes), and f32 maps
+# (a decode at compute_dtype f32) at C = 512 and at C = 12
+PERCEP_CASES = {
+    'list_128': (128, 128, 0, 512, 'list', 'learned', 'bf16'),
+    'disn_views': (128, 16, 48, 512, 'disn', 'ortho', 'bf16'),
+    'slab_256': (256, 8, 128, 512, 'list', 'learned', 'bf16'),
+    'edges': (64, 8, 0, 512, 'list', 'wide', 'bf16'),
+    'c_24': (32, 4, 8, 24, 'list', 'learned', 'bf16'),
+    'f32_list': (64, 8, 16, 512, 'list', 'learned', 'f32'),
+    'f32_disn_c_12': (32, 32, 0, 12, 'disn', 'wide', 'f32'),
+}
+PERCEP_DTYPES = dict(bf16=torch.bfloat16, f32=torch.float32)
+
+
+def _percep_inputs(case, dev):
+    from list_tpu_torch.ops.cuda import percep
+    R, S, xs, C, order, cam, dt = PERCEP_CASES[case]
+    ms = percep.PERCEP_MAP
+    g = torch.Generator(device='cpu').manual_seed(R + C + xs)
+    flat = torch.randn(ms * ms, C, generator=g).to(dev, PERCEP_DTYPES[dt])
+    t = torch.tensor(PERCEP_CAMERAS[cam], device=dev)
+    step = 1.0 / (R - 1)
+    ar = torch.arange(R, dtype=torch.float32, device=dev)
+    ar_s = torch.arange(S, dtype=torch.float32, device=dev)
+    fx = ((ar_s + xs) * step - 0.5)[:, None, None].expand(S, R, R)
+    fy = (ar * step - 0.5)[None, :, None].expand(S, R, R)
+    fz = (ar * step - 0.5)[None, None, :].expand(S, R, R)
+    ps = (2.0 * fz, 2.0 * fy, 2.0 * fx) if order == 'list' else (fx, fy, fz)
+    return flat, t, ps
+
+
+def _percep_f64_errors(flat, t, ps, outs, rel, chunk=2 ** 18):
+    """max |out - ref| over the queries of each of ``outs`` (n, C), ref
+    the bilinear in float64 at the plain version's f32 pixels; and the
+    per-element bound's worst use, max |out - ref| / (rel |ref| + 2^-20
+    max |map|), for each."""
+    from list_tpu_torch.ops.cuda import percep
+    ms = percep.PERCEP_MAP
+    xpix, ypix = percep.pixel_coords(t, *ps)
+    x, y = xpix.reshape(-1).double(), ypix.reshape(-1).double()
+    x0, y0 = x.floor().long(), y.floor().long()
+    x1, y1 = (x0 + 1).clamp(max=ms - 1), (y0 + 1).clamp(max=ms - 1)
+    wx, wy = (x - x0)[:, None], (y - y0)[:, None]
+    m = flat.double()
+    floor = 2.0 ** -20 * float(m.abs().max())
+    errs, uses = [0.0] * len(outs), [0.0] * len(outs)
+    for a in range(0, x.numel(), chunk):
+        b = slice(a, a + chunk)
+        ref = ((1 - wy[b]) * ((1 - wx[b]) * m[y0[b] * ms + x0[b]]
+                              + wx[b] * m[y0[b] * ms + x1[b]])
+               + wy[b] * ((1 - wx[b]) * m[y1[b] * ms + x0[b]]
+                          + wx[b] * m[y1[b] * ms + x1[b]]))
+        for i, out in enumerate(outs):
+            e = (out[b].double() - ref).abs()
+            errs[i] = max(errs[i], float(e.max()))
+            uses[i] = max(uses[i], float(
+                (e / (rel * ref.abs() + floor)).max()))
+    return errs, uses, (xpix, ypix)
+
+
+@pytest.mark.parametrize('case', list(PERCEP_CASES))
+def test_percep_sample_kernel_matches_plain_and_float64(cuda, case):
+    """The kernel against float64 at the plain version's f32 pixels (the
+    same four corners and weights) and against the plain version.  A bf16
+    map: the kernel's f32 bilinear is rounded to bf16 once, so per element
+    |kernel - f64| <= 2^-8 |f64| (one bf16 round-off) + 2^-20 max |map|
+    (its f32 arithmetic on the corners); the plain version rounds its
+    bf16 weights and each of its nine passes, so the kernel's largest
+    error is at most the plain version's plus one bf16 round-off of
+    max |f64|.  An f32 map: nothing is rounded to bf16, so per element
+    |kernel - f64| <= 2^-20 max |map| (the few f32 round-offs of the
+    bilinear, each at most 2^-24 of the largest corner), and the largest
+    error is at most the plain version's plus that."""
+    from list_tpu_torch.ops.cuda import percep
+    flat, t, ps = _percep_inputs(case, cuda)
+    dt = flat.dtype
+    rel = 2.0 ** -8 if dt == torch.bfloat16 else 0.0
+    before = percep.launches
+    got = percep.percep_sample(flat, t, *ps, dt)
+    torch.cuda.synchronize()
+    assert percep.launches == before + 1
+    n, C = ps[0].numel(), flat.shape[1]
+    assert got.shape == (n, C) and got.dtype == dt
+    assert got.is_contiguous() and got.data_ptr() % 16 == 0
+    plain = percep.percep_sample_plain(flat, t, *ps, dt)
+    (err, plain_err), (use, _), (xpix, ypix) = _percep_f64_errors(
+        flat, t, ps, (got, plain), rel)
+    scale = float(flat.double().abs().max())
+    if PERCEP_CASES[case][5] == 'wide':
+        for pix in (xpix, ypix):
+            assert bool((pix == 0).any()) and bool((pix == 136).any())
+    print(f'percep {case}: kernel {err:.3g}, plain {plain_err:.3g} off '
+          f'float64; bound use {use:.3f}')
+    assert bool(torch.isfinite(got.float()).all())
+    assert use <= 1.0
+    if dt == torch.bfloat16:
+        assert err <= plain_err + 2.0 ** -8 * scale
+    else:
+        assert err <= plain_err + 2.0 ** -20 * scale
+    # the kernel and the plain version pick the same corners: their gap
+    # is within both versions' rounding (the plain version's own error
+    # against float64, then the kernel's per-element bound)
+    gap = float((got.float() - plain.float()).abs().max())
+    assert gap <= plain_err + rel * scale + 2.0 ** -20 * scale
+
+
+def test_percep_sample_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    """Another dtype than a bf16 or f32 map and its own output type, rows
+    that are not whole 16-byte vectors (C = 13 in bf16) or not 16-byte
+    aligned, a camera off the card, a map that is not (137^2, C) and
+    coordinates that are not (S, R, R) raise before any launch."""
+    from list_tpu_torch.ops.cuda import percep
+    flat, t, ps = _percep_inputs('c_24', cuda)
+    ms = percep.PERCEP_MAP
+    odd = flat[:, :13].contiguous()
+    shifted = torch.empty(ms * ms * 24 + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(ms * ms, 24)
+    before = percep.launches
+    for args, err in (((flat.double(), t, *ps, torch.float64), TypeError),
+                      ((flat, t, *ps, torch.float32), TypeError),
+                      ((odd, t, *ps, torch.bfloat16), ValueError),
+                      ((shifted, t, *ps, torch.bfloat16), ValueError),
+                      ((flat, t.cpu(), *ps, torch.bfloat16), ValueError),
+                      ((flat[:-1], t, *ps, torch.bfloat16), ValueError),
+                      ((flat, t, ps[0][0], *ps[1:], torch.bfloat16),
+                       ValueError)):
+        with pytest.raises(err):
+            percep.percep_sample(*args)
+    assert percep.launches == before
+
+
 # ---- several cards ---------------------------------------------------------
 
 def _need_cards(n):
@@ -442,10 +588,12 @@ def _need_cards(n):
 
 def test_kernels_launch_on_their_operands_card(cuda):
     """Each kernel on cuda:1 while cuda:0 is the current device: K2's
-    forward, its dx and K3 through Conv3x3x3Fn's backward, K3 alone, K1
-    and K4 each launch on cuda:1 (counted once a launch), agree with their
-    plain versions there (the conv's tolerances as above, the heads' 1e-2
-    + 1e-2 |plain|), and leave cuda:0 current."""
+    forward, its dx and K3 through Conv3x3x3Fn's backward, K3 alone, K1,
+    K4 and the perceptual sample each launch on cuda:1 (counted once a
+    launch), agree with their plain versions there (the conv's tolerances
+    as above, the heads' 1e-2 + 1e-2 |plain|, the sample's 0.05 + 0.05
+    |plain|: a few bf16 round-offs of maps of unit scale), and leave
+    cuda:0 current."""
     _need_cards(2)
     dev = torch.device('cuda', 1)
     torch.cuda.set_device(0)
@@ -484,6 +632,17 @@ def test_kernels_launch_on_their_operands_card(cuda):
         assert getattr(fused_fc0, count) == before + 1
         assert got.device == dev
         torch.testing.assert_close(got, plain(*args), atol=1e-2, rtol=1e-2)
+    from list_tpu_torch.ops.cuda import percep
+    flat, t, ps = _percep_inputs('c_24', dev)
+    before = percep.launches
+    got = percep.percep_sample(flat, t, *ps, torch.bfloat16)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0 and got.device == dev
+    assert percep.launches == before + 1
+    torch.testing.assert_close(
+        got.float(), percep.percep_sample_plain(flat, t, *ps,
+                                                torch.bfloat16).float(),
+        atol=0.05, rtol=0.05)
 
 
 def test_split_decode_over_the_cards_is_the_one_card_grid(cuda):
