@@ -37,7 +37,10 @@ Run from the repository root.  Phases (any failure exits non-zero):
    ``torch.cuda.set_sync_debug_mode('error')`` and an upload probe: any
    synchronizing call (the step's batch upload and closing
    synchronization aside) or host array made a tensor fails the run (the
-   constants stay on the card, ``list_tpu_torch/ops/consts.py``).  A small
+   constants stay on the card, ``list_tpu_torch/ops/consts.py``); each of
+   those decodes' launches asserted, the 256^3 one (slabs of 8, K1) held to
+   the plain head within 1e-2 + 1e-2 |plain|, and 4 chunks of the 128^3
+   grid through the chunked decoder launch no kernel.  A small
    input (vox_res 32) is checked against the CPU plain path, under the
    default head and under ``--use_pallas 1`` (K4).
 5. Sweep path: ``test_all`` (the test-split sweep) over the port's
@@ -58,7 +61,8 @@ Run from the repository root.  Phases (any failure exits non-zero):
    remat, 4 query chunks) with seeded random weights takes 1 warm and
    3 timed ``LISTExecutor.train`` steps on batches of the synthetic
    dataset; losses, step_s and peak device memory per step, and the
-   per-step launch counts asserted.  The same cell at
+   per-step launch counts asserted; then ``train_multi`` over 2 of the
+   batches, twice a step's launches and finite losses.  The same cell at
    ``--remat_save_samples`` 0, 1 and 2 from the same weights and batches
    (1 warm and 2 timed steps each, step_s and peak memory as the port
    runs by default; then 2 steps each with deterministic algorithms,
@@ -136,7 +140,8 @@ Run from the repository root.  Phases (any failure exits non-zero):
     line.
 
 Every kernel's launch counter is set to 0 just before each path and read
-just after it.
+just after it, and held to the launch table (``launches``,
+``step_launches``, ``decode_launches``).
 
 ``--report PATH`` also writes every number of the run to one JSON file.
 
@@ -148,9 +153,10 @@ instead of the phases above, with cuda:0 the current device throughout:
    of its own writes a synthetic ShapeNet tree of 48 shapes a card (one
    224x224 view a shape) with its 128^3 occupancy caches.
 2. On cuda:1 .. N-1: K2 at the train step's shapes, K3, K1 and K4 at the
-   kernel phase's shapes, and the differentiable conv3x3x3 (K2's dx and
-   K3 through its backward), each held to its plain version within the
-   kernel phase's tolerances and 1e-2 + 1e-2 |plain|, timed on its card;
+   kernel phase's shapes, the BatchNorm path, the perceptual sample and
+   the differentiable conv3x3x3 (K2's dx and K3 through its backward),
+   each held to its plain version within the kernel phase's tolerances
+   and 1e-2 + 1e-2 |plain|, timed on its card, every kernel launched;
    the current device must stay cuda:0.
 3. The dense decode split over cuda:0 .. N-1 (``--mesh_shape N`` and
    ``--mesh_shape 1 N``) from one 128^3 encoding, at 128^3 and 256^3,
@@ -181,6 +187,7 @@ It prints a ``cards`` JSON line, then the device line with ``count`` N.
 """
 
 import argparse
+import collections
 import copy
 import csv
 import json
@@ -196,7 +203,9 @@ import torch
 import torch.nn.functional as F
 
 from list_tpu_torch.device import card, time_ms
-from list_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+from list_tpu_torch.models.list_model import DEFAULT_IM_ENC_LAYERS
+from list_tpu_torch.ops.cuda import (batch_norm, launch_counts,
+                                     reset_launch_counts)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -204,6 +213,77 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 def fail(msg: str) -> None:
     print(f'chip_smoke: FAIL: {msg}', file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+# ---- the launch table -------------------------------------------------------
+# Which kernel each path launches and how often, worked out from the default
+# LIST's encoder layers, the BatchNorm routing rule and the decode's plan:
+# every launch check of this script takes its expectation from these
+# functions, so a new kernel or a re-routed BatchNorm changes one of them.
+
+def launches(on_card: bool = True, **counts) -> dict:
+    """Every counter of ``launch_counts()`` with its launches in ``counts``
+    (0 where not given) on the card, and 0 on the CPU, where the wrappers
+    take their plain versions."""
+    want = dict.fromkeys(launch_counts(), 0)
+    unknown = sorted(set(counts) - set(want))
+    if unknown:
+        raise KeyError(f'no launch counter named {unknown}')
+    if on_card:
+        want.update(counts)
+    return want
+
+
+def full_res_convs() -> int:
+    """K2 calls of one VoxelEncoder2 forward: every convolution before its
+    first pooling (conv_0, conv_1, conv_2, then conv_3 and conv_3_0)."""
+    n = len(DEFAULT_IM_ENC_LAYERS) - 1
+    return min(n, 3) + (2 if n > 3 else 0)
+
+
+def routed_norms(batch: int, R: int) -> list:
+    """The channels of each VoxelEncoder2 BatchNorm that ``routes`` sends
+    to the kernels at ``batch`` and vox_res R: bn_0 and bn_1 at R^3, then
+    bn_l (l > 2) at (R / 2^(l - 3))^3."""
+    layers = DEFAULT_IM_ENC_LAYERS
+    return [layers[l + 1] for l in range(len(layers) - 1) if l != 2
+            and batch_norm.routes(5, torch.float32, layers[l + 1],
+                                  batch * (R >> max(0, l - 3)) ** 3)]
+
+
+def step_launches(on_card: bool = True, batch: int = 8, R: int = 128,
+                  remat: bool = True, group: bool = False) -> dict:
+    """One LISTExecutor.train step of ``batch`` items at vox_res R: the
+    encoder's full-resolution convs forward (again under remat), dx of
+    each but conv_0 (its input is the occupancy grid) and dk of each; the
+    routed BatchNorms' backward, and the forward (again under remat) of
+    those the kernels normalize.  Under a process group of more than one
+    rank (``group``) BatchNorm takes the global batch's moments in plain
+    PyTorch (models/norm.py) and launches none of its kernels."""
+    n = full_res_convs()
+    norms = [] if group else routed_norms(batch, R)
+    fwd = sum(batch_norm.normalizes(c) for c in norms)
+    return launches(on_card, conv3x3x3=n * (2 if remat else 1) + n - 1,
+                    conv3x3x3_dx=n - 1, conv3x3x3_dk=n,
+                    batch_norm=fwd * (2 if remat else 1),
+                    batch_norm_bwd=len(norms))
+
+
+def decode_launches(on_card: bool = True, R: int = 128, slab=128,
+                    head: int = 2, meshes: int = 1, encodes=()) -> dict:
+    """``meshes`` dense R^3 decodes by the plan (``slab``, ``head``) that
+    ``LISTExecutor._dense_plan`` gives: a slab launches one perceptual
+    sample and its head (2: K1, 1: K4; 0, the plain head, no kernel), and
+    the chunked decoder (slab None) nothing; beside one 128^3 encode for
+    each batch size in ``encodes``: its full-resolution convolutions and
+    its routed BatchNorms (eval)."""
+    per = meshes * (R // slab) if slab else 0
+    return launches(on_card, conv3x3x3=len(encodes) * full_res_convs(),
+                    fused_stack_head=per if head == 2 else 0,
+                    fused_fc0_mlp=per if head == 1 else 0,
+                    batch_norm=sum(len(routed_norms(b, 128))
+                                   for b in encodes),
+                    percep_sample=per)
 
 
 def _total(per, unit):
@@ -797,28 +877,14 @@ def mlp_cases(fused_fc0, args, n):
     return cases
 
 
-# K2 per train step: 5 forward + the same 5 recomputed under remat + dx of
-# the four convolutions whose input needs a gradient (not conv_0's: its
-# input is the occupancy grid); K3: one dk per convolution.
-# the voxel encoder's BatchNorms on the kernels at 128^3, at any batch
-# (bn_0, bn_1, bn_3, bn_4; bn_5 has 64 channels), and those of them whose
-# training forward runs the kernels (one channel: bn_0, bn_1)
-NORMS, NORMS_FWD = 4, 2
-STEP_LAUNCHES = dict(conv3x3x3=14, conv3x3x3_dx=4, conv3x3x3_dk=5,
-                     fused_stack_head=0, fused_fc0_mlp=0,
-                     batch_norm=2 * NORMS_FWD, batch_norm_bwd=NORMS,
-                     percep_sample=0)
-# a step under a process group of more than one rank: BatchNorm takes the
-# global batch's moments in plain PyTorch (models/norm.py)
-GROUP_STEP_LAUNCHES = dict(STEP_LAUNCHES, batch_norm=0, batch_norm_bwd=0)
 TRAIN_STEPS = 3  # timed, after one warm step
 
 
 def train_path(ex, batches, stencil3d, fused_fc0, want=None):
     """One warm step, then ``len(batches) - 1`` timed LISTExecutor.train
     steps; the launch counters are set to 0 after the warm step and
-    checked after every step against ``want`` (STEP_LAUNCHES)."""
-    want = want or STEP_LAUNCHES
+    checked after every step against ``want`` (``step_launches()``)."""
+    want = want or step_launches()
     ex.train(batches[0])
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -877,15 +943,20 @@ def sync_phase(model, img, card_line):
     """After a warm call each, nothing in an encode, a 128^3 and a 256^3
     dense decode (``LISTExecutor._decode``, one card) or a stage-2 train
     step at the reference recipe (batch 8 x 32,768 queries, remat,
-    ``--remat_save_samples 1``, 4 query chunks; a random batch seeded as
-    ``bench_torch.py``'s) synchronizes with the card, apart from the step's
-    batch upload and closing synchronization, and nothing makes a tensor
-    of a host array: the constants stay on the card
-    (``list_tpu_torch/ops/consts.py``).  Each checked call runs under
-    ``torch.cuda.set_sync_debug_mode('error')`` and the upload probe; any
-    wait or upload fails the run.  One ``no waits`` line."""
+    ``--remat_save_samples 1``, 4 query chunks; a seeded random batch)
+    synchronizes with the card, apart from the step's batch upload and
+    closing synchronization, and nothing makes a tensor of a host array:
+    the constants stay on the card (``list_tpu_torch/ops/consts.py``).
+    Each checked call runs under ``torch.cuda.set_sync_debug_mode('error')``
+    and the upload probe; any wait or upload fails the run.  Each checked
+    decode launches what ``decode_launches`` says of its plan; the 256^3
+    one (slabs of 8, K1) is held to the plain head (``use_pallas`` 0)
+    within 1e-2 + 1e-2 |plain|; the chunked decoder (``LIST.decode_sdf``)
+    over the first 4 of the 128^3 grid's chunks launches no kernel.  One
+    ``no waits`` line."""
     from list_tpu_torch.config import default_config
     from list_tpu_torch.models import LIST
+    from list_tpu_torch.ops.grid import create_grid_points_from_bounds
     from list_tpu_torch.train import LISTExecutor
     from tools.torch_decode_probe import waits_allowed
     rec = dict(card=card_line)
@@ -900,10 +971,39 @@ def sync_phase(model, img, card_line):
                               model)
             plan = ex._dense_plan(1)
             ex._decode(enc, *plan)
+            reset_launch_counts()
             grid, rec[f'decode_{R}_s'] = _no_waits(
                 f'the {R}^3 decode', lambda: ex._decode(enc, *plan))
+            rec[f'decode_{R}_launches'] = launch_counts()
             if grid.shape != (R,) * 3 or not bool(torch.isfinite(grid).all()):
                 fail(f'the checked {R}^3 decode is not a finite grid')
+            want = decode_launches(True, R, *plan)
+            if rec[f'decode_{R}_launches'] != want:
+                fail(f'the {R}^3 decode: launches '
+                     f'{rec[f"decode_{R}_launches"]}, expected {want}')
+            if R == 256:
+                plain = ex._decode(enc, plan[0], 0)
+                err = (grid - plain).abs()
+                rec['decode_256_plain_head_err'] = float(err.max())
+                if not bool((err <= 1e-2 + 1e-2 * plain.abs()).all()):
+                    fail(f'the 256^3 decode (plan {plan}) is '
+                         f'{float(err.max()):.3g} off the plain head')
+                del plain, err
+            else:
+                pts = create_grid_points_from_bounds(ex.bb_min, ex.bb_max, R)
+                pts = torch.as_tensor(pts[:4 * ex.test_pointnum][None],
+                                      dtype=torch.float32, device='cuda')
+                reset_launch_counts()
+                vals = [model.decode_sdf(c, enc)
+                        for c in pts.split(ex.test_pointnum, 1)]
+                rec['chunked_launches'] = launch_counts()
+                if rec['chunked_launches'] != decode_launches(True, R, None,
+                                                              0):
+                    fail('the chunked decoder launched '
+                         f'{rec["chunked_launches"]}, expected none')
+                if not all(bool(torch.isfinite(v).all()) for v in vals):
+                    fail('the chunked decoder gave a value not finite')
+                del pts, vals
             del ex, grid
         del enc
     torch.cuda.empty_cache()
@@ -1180,6 +1280,10 @@ def overfit_phase(args, stencil3d, fused_fc0, card_line):
         for k, f in real.items():
             setattr(LISTExecutor, k, f)
     total = launch_counts()
+    cfg = tool.overfit_config()
+    step = step_launches(batch=cfg.train_batch_size, R=cfg.vox_res,
+                         remat=bool(cfg.remat))
+    mesh = decode_launches(encodes=(1,))
     line = dict(card=card_line, steps=rec['steps'],
                 first_losses=rec['first_losses'],
                 last_losses=rec['last_losses'],
@@ -1193,15 +1297,14 @@ def overfit_phase(args, stencil3d, fused_fc0, card_line):
     if not rec['passed']:
         fail(f'the overfit gate failed: {rec["gates"]}')
     if len(per['train']) != OVERFIT_STEPS or any(
-            c != STEP_LAUNCHES for c in per['train']):
+            c != step for c in per['train']):
         fail(f'overfit: {len(per["train"])} steps, launches '
-             f'{[c for c in per["train"] if c != STEP_LAUNCHES][:3]} '
-             f'against {STEP_LAUNCHES} a step')
-    if per['predict_grid'] != [TEST_LAUNCHES]:
+             f'{[c for c in per["train"] if c != step][:3]} '
+             f'against {step} a step')
+    if per['predict_grid'] != [mesh]:
         fail(f'overfit: the mesh launched {per["predict_grid"]}, expected '
-             f'{TEST_LAUNCHES}')
-    want = {k: OVERFIT_STEPS * STEP_LAUNCHES[k] + TEST_LAUNCHES[k]
-            for k in total}
+             f'{mesh}')
+    want = {k: OVERFIT_STEPS * step[k] + mesh[k] for k in total}
     if total != want:
         fail(f'overfit: launches {total}, expected {want}')
     return dict(rec, launches=total)
@@ -1366,9 +1469,8 @@ def sweep_phase(args, stencil3d, fused_fc0):
     torch.cuda.empty_cache()
 
     first = sweep_run(cfg, '--use_pallas 1', stencil3d, fused_fc0)
-    want = decodes(conv3x3x3=5 * SWEEP_SHAPES,
-                fused_fc0_mlp=2 * SWEEP_SHAPES,
-                batch_norm=NORMS * SWEEP_SHAPES)
+    want = decode_launches(slab=64, head=1, meshes=SWEEP_SHAPES,
+                           encodes=(1,) * SWEEP_SHAPES)
     if first['launches'] != want or first['fresh_meshes'] != SWEEP_SHAPES:
         fail(f'sweep --use_pallas 1: launches {first["launches"]} for '
              f'{first["fresh_meshes"]} fresh meshes, expected {want}')
@@ -1379,10 +1481,10 @@ def sweep_phase(args, stencil3d, fused_fc0):
     cfg2 = default_config(infer_batch=2, **base)
     second = sweep_run(cfg2, '--use_pallas -1 --infer_batch 2', stencil3d,
                        fused_fc0)
-    groups = {i // 2 for i in SWEEP_DROPPED}
-    want = decodes(conv3x3x3=5 * len(groups),
-                fused_stack_head=len(SWEEP_DROPPED),
-                batch_norm=NORMS * len(groups))
+    # one encode of each pair of test shapes with a dropped mesh
+    groups = collections.Counter(i // 2 for i in SWEEP_DROPPED)
+    want = decode_launches(meshes=len(SWEEP_DROPPED),
+                           encodes=tuple(groups.values()))
     if second['launches'] != want \
             or second['fresh_meshes'] != len(SWEEP_DROPPED):
         fail(f'sweep --infer_batch 2: launches {second["launches"]} for '
@@ -1393,23 +1495,6 @@ def sweep_phase(args, stencil3d, fused_fc0):
 # ---- the training driver (stage 1 -> split -> warm-started stage 2) ---------
 
 COARSE_BATCH = 16  # the README's stage-1 recipe
-NO_LAUNCHES = dict(conv3x3x3=0, conv3x3x3_dx=0, conv3x3x3_dk=0,
-                   fused_stack_head=0, fused_fc0_mlp=0, batch_norm=0,
-                   batch_norm_bwd=0, percep_sample=0)
-
-
-def decodes(**counts) -> dict:
-    """NO_LAUNCHES with ``counts``, and one perceptual sample for each
-    head launch (K1 or K4): every slab of a LIST dense decode on the card
-    launches one of each."""
-    want = dict(NO_LAUNCHES, **counts)
-    want['percep_sample'] = want['fused_stack_head'] + want['fused_fc0_mlp']
-    return want
-
-
-# a testlist shape of stage 2: one encode (K2 x5, the eval BatchNorm x4)
-# and one dense decode (K1 and the perceptual sample)
-TEST_LAUNCHES = decodes(conv3x3x3=5, fused_stack_head=1, batch_norm=NORMS)
 
 
 def stage1_phase(args, stencil3d, fused_fc0):
@@ -1448,7 +1533,7 @@ def stage1_phase(args, stencil3d, fused_fc0):
         steps.append(rec)
         if not np.isfinite(rec['chamfer_loss']):
             fail(f'stage 1 step {i}: the Chamfer loss is not finite')
-        if rec['launches'] != NO_LAUNCHES:
+        if rec['launches'] != launches():
             fail(f'stage 1 step {i}: launches {rec["launches"]}, expected '
                  'none')
     del ex
@@ -1531,21 +1616,20 @@ def driver_run(cfg, label, Executor, stencil3d, fused_fc0, run=None,
     return rec
 
 
-def _check_driver(rec, step_launches, test_launches):
-    """Every step and testlist shape launched exactly its kernels, nothing
-    else launched any, and every loss is finite."""
+def _check_driver(rec, step, test):
+    """Every step and testlist shape launched exactly its kernels (``step``
+    and ``test``), nothing else launched any, and every loss is finite."""
     steps = [e for e in rec['events'] if e['kind'] == 'train']
     tests = [e for e in rec['events'] if e['kind'] == 'test']
     label = rec['driver']
     if not steps or not tests:
         fail(f'{label}: {len(steps)} steps and {len(tests)} testlist shapes')
     for e in steps + tests:
-        want = step_launches if e['kind'] == 'train' else test_launches
+        want = step if e['kind'] == 'train' else test
         if e['launches'] != want:
             fail(f'{label}: a {e["kind"]} call launched {e["launches"]}, '
                  f'expected {want}')
-    total = {k: len(steps) * step_launches[k] + len(tests) * test_launches[k]
-             for k in step_launches}
+    total = {k: len(steps) * step[k] + len(tests) * test[k] for k in step}
     if rec['launches'] != total:
         fail(f'{label}: launches {rec["launches"]}, expected {total}')
     if not all(np.isfinite(v) for e in steps for v in e['losses'].values()):
@@ -1585,7 +1669,7 @@ def driver_phase(args, stencil3d, fused_fc0):
     torch.manual_seed(args.seed + 4)
     first = driver_run(c1, 'stage 1 (CoarseNet)', CoarseNetExecutor,
                        stencil3d, fused_fc0)
-    _check_driver(first, NO_LAUNCHES, NO_LAUNCHES)
+    _check_driver(first, launches(), launches())
     t0 = time.perf_counter()
     split_coarse_checkpoint(os.path.join(c1.checkpoint_dir,
                                          'best_model_train.ckpt'),
@@ -1600,7 +1684,7 @@ def driver_phase(args, stencil3d, fused_fc0):
     torch.manual_seed(args.seed + 5)
     second = driver_run(c2, 'stage 2 (LIST, warm start)', LISTExecutor,
                         stencil3d, fused_fc0)
-    _check_driver(second, STEP_LAUNCHES, TEST_LAUNCHES)
+    _check_driver(second, step_launches(), decode_launches(encodes=(1,)))
 
     files = {d: sorted(f for f in os.listdir(d) if f.endswith('.ckpt'))
              for d in (c1.checkpoint_dir, c2.checkpoint_dir)}
@@ -1789,7 +1873,7 @@ def pix3d_phase(args, stencil3d, fused_fc0, card_line):
     torch.manual_seed(args.seed + 8)
     first = driver_run(c1, 'pix3d stage 1 (CoarseNet)', CoarseNetExecutor,
                        stencil3d, fused_fc0)
-    _check_driver(first, NO_LAUNCHES, NO_LAUNCHES)
+    _check_driver(first, launches(), launches())
     t0 = time.perf_counter()
     split_coarse_checkpoint(os.path.join(c1.checkpoint_dir,
                                          'best_model_train.ckpt'),
@@ -1803,7 +1887,7 @@ def pix3d_phase(args, stencil3d, fused_fc0, card_line):
     torch.manual_seed(args.seed + 9)
     second = driver_run(c2, 'pix3d stage 2 (LIST, warm start)', LISTExecutor,
                         stencil3d, fused_fc0)
-    _check_driver(second, STEP_LAUNCHES, TEST_LAUNCHES)
+    _check_driver(second, step_launches(), decode_launches(encodes=(1,)))
     files = {d: sorted(f for f in os.listdir(d) if f.endswith('.ckpt'))
              for d in (c1.checkpoint_dir, c2.checkpoint_dir)}
     scored = any(e['kind'] == 'testlist' and ('iou' in e['scores'] or
@@ -1854,8 +1938,7 @@ def pix3d_phase(args, stencil3d, fused_fc0, card_line):
     del trained, split
     torch.cuda.empty_cache()
     sweep = sweep_run(c3, 'pix3d', stencil3d, fused_fc0, shapes=PIX3D_TEST)
-    want = decodes(conv3x3x3=5 * PIX3D_TEST,
-                fused_stack_head=PIX3D_TEST, batch_norm=NORMS * PIX3D_TEST)
+    want = decode_launches(meshes=PIX3D_TEST, encodes=(1,) * PIX3D_TEST)
     if sweep['launches'] != want or sweep['fresh_meshes'] != PIX3D_TEST:
         fail(f'pix3d sweep: launches {sweep["launches"]} for '
              f'{sweep["fresh_meshes"]} fresh images, expected {want}')
@@ -1892,11 +1975,6 @@ def pix3d_phase(args, stencil3d, fused_fc0, card_line):
 DIST_WORLD = 2  # gloo ranks on the one card (NCCL refuses two on one GPU)
 DIST_STEPS = 2  # timed 2-rank train steps, after one warm step
 DIST_SHAPES = SWEEP_SHAPES // DIST_WORLD  # each rank's strided test shapes
-# a rank's sweep of its 4 fresh shapes: one encode (K2 x5, the eval
-# BatchNorm x4) and one K1 each
-DIST_SWEEP_LAUNCHES = decodes(conv3x3x3=5 * DIST_SHAPES,
-                              fused_stack_head=DIST_SHAPES,
-                              batch_norm=NORMS * DIST_SHAPES)
 SPLIT = ('cuda:0', 'cuda:0')  # the split decode's devices on one card
 
 
@@ -1996,9 +2074,10 @@ def dist_rank(args, stencil3d, fused_fc0):
     torch.manual_seed(args.seed)
     ex = LISTExecutor(tcfg, LIST.from_config(tcfg))
     ex.init_optimizer()
-    rec['train_steps'], _ = train_path(ex, [batch] * (DIST_STEPS + 1),
-                                       stencil3d, fused_fc0,
-                                       GROUP_STEP_LAUNCHES)
+    rec['train_steps'], _ = train_path(
+        ex, [batch] * (DIST_STEPS + 1), stencil3d, fused_fc0,
+        step_launches(batch=tcfg.train_batch_size // DIST_WORLD,
+                      group=True))
     rec['digests'] = _digests(ex)
     del ex, batch, ds
     torch.cuda.empty_cache()
@@ -2016,9 +2095,10 @@ def dist_rank(args, stencil3d, fused_fc0):
                                                      'sweep_ranks'))
     rec['sweep'] = sweep_run(cfg, f'rank {rank} of {DIST_WORLD}', stencil3d,
                              fused_fc0, shapes=DIST_SHAPES)
-    if rec['sweep']['launches'] != DIST_SWEEP_LAUNCHES:
+    want = decode_launches(meshes=DIST_SHAPES, encodes=(1,) * DIST_SHAPES)
+    if rec['sweep']['launches'] != want:
         fail(f'rank {rank} sweep: launches {rec["sweep"]["launches"]}, '
-             f'expected {DIST_SWEEP_LAUNCHES}')
+             f'expected {want}')
     multihost.sync_global_devices('done')
     multihost.shutdown()
     with open(os.path.join(args.dist_dir, f'rank{rank}.json'), 'w') as f:
@@ -2166,8 +2246,7 @@ def split_decode_check(cfg, model, img, fused_fc0, stencil3d, card_line):
                bitwise=bool(np.array_equal(got, ref)), max_abs_err=err,
                tol=tol, same_slab_ranges_bitwise=same_slab)
     print('split decode', json.dumps(rec), flush=True)
-    want = decodes(conv3x3x3=5, fused_stack_head=len(SPLIT),
-                   batch_norm=NORMS)
+    want = decode_launches(slab=R // len(SPLIT), encodes=(1,))
     if counts != want:
         fail(f'split decode: launches {counts}, expected {want}')
     if not (np.isfinite(got).all() and err <= tol and same_slab):
@@ -2374,11 +2453,12 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
     forward and the dx shape), K3 at its three shapes, K1 at the
     production decode (n = 128^3) and K4 at one slab (n = 64 x 128^2),
     and the differentiable conv3x3x3 (K2's dx and K3 inside
-    Conv3x3x3Fn.backward, batch 2) and the BatchNorm path at its shapes
-    (``bn_phase``); each against its plain version within the kernel
-    phase's tolerances and 1e-2 + 1e-2 |plain| (BatchNorm: BN_LIMITS),
-    and timed with CUDA events on its card."""
-    from list_tpu_torch.ops.cuda import batch_norm
+    Conv3x3x3Fn.backward, batch 2), the BatchNorm path at its shapes
+    (``bn_phase``) and the perceptual sample (``percep_phase``); each
+    against its plain version within the kernel phase's tolerances and
+    1e-2 + 1e-2 |plain| (BatchNorm: BN_LIMITS; the sample: float64), and
+    timed with CUDA events on its card; every kernel launched."""
+    from list_tpu_torch.ops.cuda import batch_norm, percep
     rows = []
     for d in devs:
         reset_launch_counts()
@@ -2390,6 +2470,8 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
             head = head_phase(d, fused_fc0, 128 ** 3)
             torch.cuda.empty_cache()
             mlp = mlp_phase(d, fused_fc0, 64 * 128 ** 2)
+            torch.cuda.empty_cache()
+            sample = percep_phase(d, percep)
         grads = grad_fn_phase(d, stencil3d)
         counts = launch_counts()
         _current_is_first(f'the kernels on {d}')
@@ -2401,7 +2483,8 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
                                       for r in grads),
             fused_stack_head=head['ok'], fused_fc0_mlp=mlp['ok'],
             batch_norm=all(r['ok'] for r in bn_step['per_shape']
-                           + bn_request['per_shape']))
+                           + bn_request['per_shape']),
+            percep_sample=sample['ok'])
         row = dict(device=str(d), card=lines[d.index], launches=counts,
                    within_1e2_plus_1e2_plain=within,
                    ms=dict(conv3x3x3_step=conv['ms'],
@@ -2409,14 +2492,16 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
                            fused_stack_head=head['ms'],
                            fused_fc0_mlp=mlp['ms'],
                            batch_norm_step=bn_step['ms'],
-                           batch_norm_request=bn_request['ms']),
+                           batch_norm_request=bn_request['ms'],
+                           percep_sample=sample['ms']),
                    max_abs_err=dict(conv3x3x3=conv['max_abs_err'],
                                     conv3x3x3_dk=dk['max_abs_err'],
                                     fused_stack_head=head['max_abs_err'],
                                     fused_fc0_mlp=mlp['max_abs_err'],
-                                    batch_norm=bn_step['max_abs_err']),
+                                    batch_norm=bn_step['max_abs_err'],
+                                    percep_sample=sample['max_abs_err']),
                    conv=conv, dk=dk, head=head, mlp=mlp, gradients=grads,
-                   batch_norm=[bn_step, bn_request])
+                   batch_norm=[bn_step, bn_request], percep_sample=sample)
         print('card kernels', json.dumps({k: row[k] for k in (
             'device', 'card', 'launches', 'within_1e2_plus_1e2_plain', 'ms',
             'max_abs_err')}), flush=True)
@@ -2582,10 +2667,9 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
                        no_waits_bitwise=bool(torch.equal(gw, g)),
                        max_abs_err=err)
             del g, g1, gt_, gw
-        want = decodes(fused_stack_head=(CARDS_DECODE_REPS + 2)
-                       * R // plan[0])
-        want1 = decodes(fused_stack_head=(CARDS_DECODE_REPS + 2)
-                        * R // plan1[0])
+        want = decode_launches(True, R, *plan, meshes=CARDS_DECODE_REPS + 2)
+        want1 = decode_launches(True, R, *plan1,
+                                meshes=CARDS_DECODE_REPS + 2)
         print('cards decode', json.dumps(rec), flush=True)
         if rec['split_launches'] != want or rec['one_card_launches'] != want1:
             fail(f'{R}^3 decode: launches {rec["split_launches"]} split and '
@@ -2639,8 +2723,9 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
                                 and np.array_equal(mesh.faces, mesh1.faces)),
             vertices=len(mesh.vertices), scores=score,
             scores_one_card=score1, launches=counts)
-        want = decodes(conv3x3x3=5 * 2, fused_stack_head=n * 3,
-                       batch_norm=NORMS * 2)
+        # a batch of 2 and a test: two encodes, three meshes
+        want = decode_launches(True, 128, *ex._dense_plan(n), meshes=3,
+                               encodes=(2, 1))
         if counts != want:
             fail(f'--mesh_shape {list(s)}: a batch of 2 and a test '
                  f'launched {counts}, expected {want}')
@@ -2673,9 +2758,8 @@ def cards_sweep_phase(devs, root, ckpt, stencil3d, fused_fc0):
                                        cfg.test_checkpoint))
         rec = sweep_run(cfg, label, stencil3d, fused_fc0)
         k1 = 1 if not kw else n  # slab 128 on one card, 128 / n split
-        want = decodes(conv3x3x3=5 * SWEEP_SHAPES,
-                       fused_stack_head=k1 * SWEEP_SHAPES,
-                       batch_norm=NORMS * SWEEP_SHAPES)
+        want = decode_launches(slab=128 // k1, meshes=SWEEP_SHAPES,
+                               encodes=(1,) * SWEEP_SHAPES)
         if rec['launches'] != want:
             fail(f'sweep {label}: launches {rec["launches"]}, expected '
                  f'{want}')
@@ -2754,8 +2838,8 @@ def card_rank(args, stencil3d, fused_fc0):
         run = driver_run(None, f'rank {rank}: {name}', Executor, stencil3d,
                          fused_fc0, run=lambda: train_torch.main(flags),
                          seen=seen)
-        want = NO_LAUNCHES if Executor is not LISTExecutor \
-            else GROUP_STEP_LAUNCHES if args.cards > 1 else STEP_LAUNCHES
+        want = launches() if Executor is not LISTExecutor \
+            else step_launches(batch=per_card, group=args.cards > 1)
         steps = [e for e in run['events'] if e['kind'] == 'train']
         if len(steps) < 3 or any(e['launches'] != want for e in steps):
             fail(f'rank {rank} {name}: {len(steps)} steps, launches '
@@ -2795,8 +2879,7 @@ def card_rank(args, stencil3d, fused_fc0):
     rec['sweep'] = sweep_run(None, f'rank {rank} of {args.cards}', stencil3d,
                              fused_fc0, shapes=shapes,
                              run=lambda: infer_torch.main(flags))
-    want = decodes(conv3x3x3=5 * shapes, fused_stack_head=shapes,
-                   batch_norm=NORMS * shapes)
+    want = decode_launches(meshes=shapes, encodes=(1,) * shapes)
     if rec['sweep']['launches'] != want:
         fail(f'rank {rank} sweep: launches {rec["sweep"]["launches"]}, '
              f'expected {want}')
@@ -2931,7 +3014,7 @@ def cards_last_card_phase(args, dev, line, model, img, gt):
                           / 1e9, launches=launch_counts(),
                           losses={k: float(v) for k, v in losses.items()}))
         _current_is_first(f'a train step on {dev}')
-        if steps[-1]['launches'] != STEP_LAUNCHES or not all(
+        if steps[-1]['launches'] != step_launches() or not all(
                 np.isfinite(v) for v in steps[-1]['losses'].values()):
             fail(f'a train step on {dev}: {steps[-1]}')
     del ex
@@ -2948,7 +3031,8 @@ def cards_last_card_phase(args, dev, line, model, img, gt):
                mesh=dict(vertices=len(mesh.vertices), **mex.timings,
                          metrics=score, launches=counts))
     print('cards last card', json.dumps(rec), flush=True)
-    if counts != TEST_LAUNCHES or not len(mesh.vertices) or not score \
+    if counts != decode_launches(encodes=(1,)) or not len(mesh.vertices) \
+            or not score \
             or not np.isfinite(values).all():
         fail(f'the mesh on {dev}: launches {counts}, '
              f'{len(mesh.vertices)} vertices, scores {score}')
@@ -3192,22 +3276,16 @@ def main():
             fail(f'request {i}: empty mesh')
         if not score or not all(np.isfinite(v) for v in score.values()):
             fail(f'request {i}: metrics missing or not finite: {score}')
-    launches = launch_counts()
+    request_launches = launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print('inference path launches', json.dumps(launches),
+    print('inference path launches', json.dumps(request_launches),
           f'peak_device_gb {peak_gb:.2f}', flush=True)
-    if launches != decodes(conv3x3x3=5 * args.requests,
-                           fused_stack_head=launches['fused_stack_head'],
-                           batch_norm=NORMS * args.requests):
-        fail(f'inference path launches {launches}, expected conv3x3x3 '
-             f'{5 * args.requests}, batch_norm {NORMS * args.requests}, '
-             'a perceptual sample a head launch and no dx, dk or backward')
-    if launches['fused_stack_head'] < args.requests:
-        fail('fused_stack_head was not launched for every request')
-    slabs = 128 // ex._dense_plan()[0]
-    if launches['percep_sample'] != slabs * args.requests:
-        fail(f'percep_sample: {launches["percep_sample"]} launches for '
-             f'{args.requests} requests of {slabs} slab(s)')
+    want = decode_launches(True, 128, *ex._dense_plan(),
+                           meshes=args.requests,
+                           encodes=(1,) * args.requests)
+    if request_launches != want:
+        fail(f'inference path launches {request_launches}, expected '
+             f'{want}')
 
     # ---- no waits: warm encode, 128^3 and 256^3 decodes, train step ------
     no_waits = sync_phase(model, imgs[0], card_line)
@@ -3270,6 +3348,18 @@ def main():
     tex = LISTExecutor(tcfg, LIST.from_config(tcfg))
     tex.init_optimizer()
     steps, train_launches = train_path(tex, batches, stencil3d, fused_fc0)
+    # train_multi over K = 2 batches: K steps' launches, finite losses
+    reset_launch_counts()
+    _, multi = tex.train_multi(batches[1:3])
+    rec = dict(launches=launch_counts(),
+               losses={k: v.tolist() for k, v in multi.items()})
+    print('train_multi', json.dumps(rec), flush=True)
+    want = {k: 2 * v for k, v in step_launches().items()}
+    if rec['launches'] != want:
+        fail(f'train_multi of 2 batches: launches {rec["launches"]}, '
+             f'expected {want}')
+    if not np.isfinite(list(rec['losses'].values())).all():
+        fail('train_multi of 2 batches: a loss is not finite')
     del tex
     torch.cuda.empty_cache()
 
@@ -3315,7 +3405,8 @@ def main():
 
     kernels = [
         dict(name='conv3x3x3', route='cuda', source=stencil3d.SOURCE,
-             replaces=stencil3d.REPLACES, launches=launches['conv3x3x3'],
+             replaces=stencil3d.REPLACES,
+             launches=request_launches['conv3x3x3'],
              per=conv['unit'], max_abs_err=conv['max_abs_err'],
              ms=conv['ms'], plain_ms=conv['plain_ms'],
              bound_ms=conv['bound_ms'], bound_by=conv['bound_by'],
@@ -3341,7 +3432,7 @@ def main():
              bound_by=dk['bound_by'], library_ms=dk['library_ms']),
         dict(name='fused_stack_head', route='cuda', source=fused_fc0.SOURCE,
              replaces=fused_fc0.REPLACES,
-             launches=launches['fused_stack_head'],
+             launches=request_launches['fused_stack_head'],
              driver_launches=driver_launches['fused_stack_head'],
              pix3d_launches=pix3d_launches['fused_stack_head'],
              per='request (n = 128^3)',
@@ -3357,7 +3448,7 @@ def main():
              bound_by=mlp['bound_by'], library_ms=mlp['library_ms']),
         dict(name='batch_norm', route='cuda', source=batch_norm.SOURCE,
              replaces=None, library='cuDNN (F.batch_norm)',
-             launches=launches['batch_norm'], per=bn_eval['unit'],
+             launches=request_launches['batch_norm'], per=bn_eval['unit'],
              max_abs_err=bn_eval['max_abs_err'], ms=bn_eval['ms'],
              plain_ms=bn_eval['plain_ms'], bound_ms=bn_eval['bound_ms'],
              bound_by=bn_eval['bound_by'],
@@ -3375,7 +3466,7 @@ def main():
              library_ms=bn_train['library_ms']),
         dict(name='percep_sample', route='cuda', source=percep.SOURCE,
              replaces=None, library=percep_row['library'],
-             launches=launches['percep_sample'],
+             launches=request_launches['percep_sample'],
              per='slab (n = 128^3, C = 512)',
              max_abs_err=percep_row['max_abs_err'], ms=percep_row['ms'],
              plain_ms=percep_row['plain_ms'], bound_ms=percep_row['bound_ms'],

@@ -10,10 +10,10 @@ convolutions (``disable_tf32``): the JAX reference asks for full f32
 precision where it matters (its align-corners resize matrices), and cuDNN
 convolutions default to TF32 on Hopper.
 
-The card's data-sheet rates (``PEAK_RATES``, ``peak_rates``), its
-``nvidia-smi`` line (``card``; every card's: ``cards``) and the CUDA-event
-median of a call on a given card (``time_ms``) serve ``chip_smoke.py``,
-``bench_torch.py`` and the kernels' bounds.
+The H100 SXM's data-sheet rates (``H100_SXM``) are what the kernels'
+``bound_ms`` read.  The card's ``nvidia-smi`` line (``card``; every
+card's: ``cards``) and the CUDA-event median of a call on a given card
+(``time_ms``) serve ``chip_smoke.py``, the tools and the card tests.
 """
 
 from __future__ import annotations
@@ -27,24 +27,11 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 
-# Data-sheet peaks (NVIDIA's H100 SXM data sheet: dense rates at the 700 W
-# limit) by ``torch.cuda.get_device_name``: bf16 tensor-core and f32
-# (outside the tensor cores) TFLOP/s, HBM GB/s.
-PEAK_RATES: Dict[str, Dict[str, float]] = {
-    'NVIDIA H100 80GB HBM3': dict(bf16_tflops=989.0, f32_tflops=67.0,
-                                  mem_gbs=3350.0),
-}
-H100_SXM = PEAK_RATES['NVIDIA H100 80GB HBM3']
-
-
-def peak_rates(name: str) -> Dict[str, float]:
-    """The data-sheet rates of the card named ``name``; an unknown card
-    raises, so that no number is stated against another card's peak."""
-    try:
-        return PEAK_RATES[name]
-    except KeyError:
-        raise ValueError(f'list_tpu_torch: no data-sheet rates for {name!r} '
-                         f'(known: {sorted(PEAK_RATES)})') from None
+# NVIDIA's H100 SXM data sheet (NVIDIA H100 80GB HBM3), dense rates at the
+# 700 W limit: bf16 tensor-core and f32 (outside the tensor cores) TFLOP/s,
+# HBM GB/s.
+H100_SXM: Dict[str, float] = dict(bf16_tflops=989.0, f32_tflops=67.0,
+                                  mem_gbs=3350.0)
 
 
 def cards() -> List[str]:

@@ -15,7 +15,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_and_chip_smoke_import_no_jax():
     """Importing the port, its entry scripts infer_torch.py,
-    train_torch.py, bench_torch.py, evaluation/evaluate_torch.py,
+    train_torch.py, evaluation/evaluate_torch.py,
     evaluation/evaluate_gather_torch.py, preprocessing/preprocess_torch.py,
     preprocessing/farthest_pointcloud_torch.py and
     tools/torch_overfit_chip.py, and everything chip_smoke.py imports,
@@ -44,7 +44,7 @@ def test_port_and_chip_smoke_import_no_jax():
         'import list_tpu_torch.data.transforms, infer_torch\n'
         'import list_tpu_torch.train.split_coarse\n'
         'import list_tpu_torch.data.loader, list_tpu_torch.utils.torch_port\n'
-        'import train_torch, bench_torch\n'
+        'import train_torch\n'
         'import list_tpu_torch.parallel.multihost\n'
         'import list_tpu_torch.parallel.mesh, list_tpu_torch.eval.offline\n'
         'import list_tpu_torch.data.pix3d, list_tpu_torch.data.preprocess\n'

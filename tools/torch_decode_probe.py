@@ -9,15 +9,13 @@ image): ``dense_grid_sdf`` through ``LISTExecutor._decode`` at 128^3 and
 256^3 (from the 128^3 encoding) and ``LIST.encode``, each after one warm
 call: the median host-clock seconds between synchronizations and the
 median CUDA-event seconds; the host arrays converted to tensors in one call
-(``numpy_uploads``); every synchronizing call of one call, by the line that
-made it (``sync_sites``, ``torch.cuda.set_sync_debug_mode('warn')``); and a
-``torch.profiler`` trace of one call: the card's busy share (the union of
-its kernel and copy intervals over the span from the first host op to the
-last device op) and the kernels that take most of it.  Then the train step
-at the reference recipe (batch 8 x 32,768 queries, 128^3, remat,
-``--remat_save_samples 1``, 4 query chunks; ``bench_torch.py``'s random
-batch): 1 warm and 3 timed steps (``step_s``), and the synchronizing calls
-of one more.
+(``numpy_uploads``); and every synchronizing call of one call, by the line
+that made it (``sync_sites``, ``torch.cuda.set_sync_debug_mode('warn')``).
+The card's idle share of a mesh is the benchmark's ``idle_pct.mesh``
+(``benchmark/``).  Then the train step at the reference recipe (batch 8 x
+32,768 queries, 128^3, remat, ``--remat_save_samples 1``, 4 query chunks;
+a seeded random batch): 1 warm and 3 timed steps (``step_s``), and the
+synchronizing calls of one more.
 
 ``--root`` imports ``list_tpu_torch`` from another tree (an earlier commit
 unpacked with ``git archive`` into a git-ignored directory), so that two
@@ -62,7 +60,7 @@ def sync_sites(mode: str = 'warn'):
             return
         stack = traceback.extract_stack()[:-1]
         own = [f for f in stack if 'list_tpu_torch' in f.filename
-               or f.filename.endswith(('chip_smoke.py', 'bench_torch.py'))]
+               or f.filename.endswith('chip_smoke.py')]
         where = (f'{os.path.relpath(own[-1].filename, ROOT)}:'
                  f'{own[-1].lineno} {own[-1].name}' if own else '?')
         if not own:  # a frame of torch: name it and its source line
@@ -142,41 +140,10 @@ def first_sync(fn) -> str:
     return ''
 
 
-def busy_share(prof) -> dict:
-    """The card's busy share of a profiled call: the union of its device
-    intervals over the span from the first event to the last, with the
-    five kernels of most device time."""
-    dev, lo, hi = [], None, None
-    for e in prof.events():
-        s, t = e.time_range.start, e.time_range.end
-        lo = s if lo is None else min(lo, s)
-        hi = t if hi is None else max(hi, t)
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev.append((s, t))
-    if not dev:
-        return dict(busy_share='not measured')
-    busy, end = 0.0, None
-    for s, t in sorted(dev):
-        if end is None or s > end:
-            busy += t - s
-            end = t
-        elif t > end:
-            busy += t - end
-            end = t
-    top = sorted(((k.key, k.device_time_total / 1e3, k.count)
-                  for k in prof.key_averages()
-                  if getattr(k, 'device_time_total', 0) > 0
-                  and k.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda r: -r[1])[:5]
-    return dict(busy_ms=busy / 1e3, span_ms=(hi - lo) / 1e3,
-                busy_share=busy / (hi - lo), device_events=len(dev),
-                top_kernels_ms=top)
-
-
-def probe(fn, reps: int, profile: bool = True) -> dict:
+def probe(fn, reps: int) -> dict:
     """``fn()`` once warm, then ``reps`` times between synchronizations
-    (host clock and CUDA events), once counting host-array uploads, once
-    listing synchronizing calls, and once under the profiler."""
+    (host clock and CUDA events), once counting host-array uploads and
+    once listing synchronizing calls."""
     fn()
     torch.cuda.synchronize()
     host, dev = [], []
@@ -201,15 +168,6 @@ def probe(fn, reps: int, profile: bool = True) -> dict:
                sync_sites=dict(sites.most_common()))
     if sites:
         rec['first_sync'] = first_sync(fn)
-    if profile:
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        t0 = time.perf_counter()
-        with torch.profiler.profile(activities=acts) as prof:
-            fn()
-            torch.cuda.synchronize()
-        rec['profiled_host_s'] = time.perf_counter() - t0
-        rec.update(busy_share(prof))
     return rec
 
 
