@@ -26,12 +26,16 @@ Run from the repository root.  Phases (any failure exits non-zero):
    cuDNN and ``torch.var_mean`` + ``F.batch_norm``.  The perceptual sample
    (``ops/cuda/percep.py``) at a 128^3 slab and C = 512: one launch, held
    to float64 at the plain version's pixels, timed beside the plain
-   version and ``F.grid_sample`` (DISN's expanded views timed too).
+   version and ``F.grid_sample`` (DISN's expanded views timed too).  The
+   voxel work (``ops/cuda/voxel.py``) at a 128^3 slab: each kept group's
+   seven taps and the hoisted coarse term, one ``voxel_taps`` launch each,
+   held to float64 over every element, timed beside the plain version.
 4. Inference path: the full-width default LIST (vox_res 128) with seeded
    random weights serves ``--requests`` seeded 224x224 images through
    ``LISTExecutor.test(..., eval_pred=True)`` (dense 128^3 SDF -> marching
-   cubes -> metrics against a sphere), one perceptual sample a slab of
-   each request asserted.  Then no waits: after a warm call
+   cubes -> metrics against a sphere), one perceptual sample a slab and
+   the voxel kernel's launches (3 kept groups and 1 coarse term) of each
+   request asserted.  Then no waits: after a warm call
    each, an encode, a 128^3 and a 256^3 dense decode and a stage-2 train
    step (batch 8 x 32,768 queries, ``--remat_save_samples 1``) run under
    ``torch.cuda.set_sync_debug_mode('error')`` and an upload probe: any
@@ -77,8 +81,8 @@ Run from the repository root.  Phases (any failure exits non-zero):
    cubes and the containment IoU on 200,000 points; the gate (finite
    losses, the final sdf_loss under half the first, more than 10
    vertices, IoU > 0.7) and the launches of every step (K2 14, of which
-   dx 4, K3 5) and of the mesh (K2 5, K1 1, the perceptual sample 1)
-   asserted; one ``overfit``
+   dx 4, K3 5) and of the mesh (K2 5, K1 1, the perceptual sample 1,
+   voxel_taps 4) asserted; one ``overfit``
    line.
 8. Training driver: the full-width CoarseNet (ResNet18 at 224^2, TreeGCN
    to 4,096 points) takes 1 warm and 3 timed ``CoarseNetExecutor.train``
@@ -134,7 +138,8 @@ Run from the repository root.  Phases (any failure exits non-zero):
    grid with 2 K1 launches (each timed).
 11. Prints one JSON line of kernel numbers (K2 and BatchNorm once per
     path: per request at batch 1, and per train step at batch 8; K4 per
-    mesh of the sweep; the perceptual sample per slab of 128^3;
+    mesh of the sweep; the perceptual sample per slab of 128^3; the voxel
+    work per 128^3 mesh;
     ``driver_launches`` and ``pix3d_launches``: the warm-started LIST
     epoch's counts on the synthetic and the Pix3D data), then the device
     line.
@@ -153,8 +158,8 @@ instead of the phases above, with cuda:0 the current device throughout:
    of its own writes a synthetic ShapeNet tree of 48 shapes a card (one
    224x224 view a shape) with its 128^3 occupancy caches.
 2. On cuda:1 .. N-1: K2 at the train step's shapes, K3, K1 and K4 at the
-   kernel phase's shapes, the BatchNorm path, the perceptual sample and
-   the differentiable conv3x3x3 (K2's dx and K3 through its backward),
+   kernel phase's shapes, the BatchNorm path, the perceptual sample, the
+   voxel work and the differentiable conv3x3x3 (K2's dx and K3 through its backward),
    each held to its plain version within the kernel phase's tolerances
    and 1e-2 + 1e-2 |plain|, timed on its card, every kernel launched;
    the current device must stay cuda:0.
@@ -269,21 +274,43 @@ def step_launches(on_card: bool = True, batch: int = 8, R: int = 128,
                     batch_norm_bwd=len(norms))
 
 
+def voxel_launches(head: int = 2, coarse_proj: int = 16) -> tuple:
+    """(kept launches a slab, whether a coarse term) of LIST's dense decode
+    from a 128^3 encoding: the VoxelEncoder2 features (conv_2's at 128^3,
+    then conv_l's at 128 / 2^(l - 3)) above ``coarse_proj`` are kept, one
+    ``voxel_taps`` launch a same-resolution group (head 0 or 2) or a scale
+    (head 1) a slab; those at or below it make the coarse term."""
+    n = len(DEFAULT_IM_ENC_LAYERS) - 1
+    res = [128] + [128 >> (l - 3) for l in range(3, n)]
+    kept = [r for r in res if r > coarse_proj]
+    if not kept:
+        kept = res
+    return (len(kept) if head == 1 else len(set(kept)),
+            len(kept) < len(res))
+
+
 def decode_launches(on_card: bool = True, R: int = 128, slab=128,
-                    head: int = 2, meshes: int = 1, encodes=()) -> dict:
+                    head: int = 2, meshes: int = 1, encodes=(),
+                    cards: int = 1) -> dict:
     """``meshes`` dense R^3 decodes by the plan (``slab``, ``head``) that
-    ``LISTExecutor._dense_plan`` gives: a slab launches one perceptual
-    sample and its head (2: K1, 1: K4; 0, the plain head, no kernel), and
-    the chunked decoder (slab None) nothing; beside one 128^3 encode for
+    ``LISTExecutor._dense_plan`` gives, split over ``cards``: a slab
+    launches one perceptual sample, its head (2: K1, 1: K4; 0, the plain
+    head, no kernel) and ``voxel_launches`` kept groups, and the coarse
+    term one launch a card at R <= 128 (hoisted), else one a slab; the
+    chunked decoder (slab None) nothing; beside one 128^3 encode for
     each batch size in ``encodes``: its full-resolution convolutions and
     its routed BatchNorms (eval)."""
     per = meshes * (R // slab) if slab else 0
+    kept, coarse = voxel_launches(head)
+    hoisted = meshes * cards if R <= 128 else per
     return launches(on_card, conv3x3x3=len(encodes) * full_res_convs(),
                     fused_stack_head=per if head == 2 else 0,
                     fused_fc0_mlp=per if head == 1 else 0,
                     batch_norm=sum(len(routed_norms(b, 128))
                                    for b in encodes),
-                    percep_sample=per)
+                    percep_sample=per,
+                    voxel_taps=per * kept + (hoisted if coarse and slab
+                                             else 0))
 
 
 def _total(per, unit):
@@ -709,6 +736,100 @@ def percep_phase(dev, percep, R=128, C=512):
         fail('percep_sample disagrees with float64 or the plain version '
              'beyond its tolerance, or launched other than once a call')
     return row
+
+
+# LIST's dense decode at 128^3 from a 128^3 encoding: each kept group's
+# (source resolution, channels), and the coarse term's projected scales
+VOXEL_GROUPS = ((128, 17), (64, 32), (32, 64))
+VOXEL_COARSE = (16, 8)
+
+
+def voxel_phase(dev, voxel, R=128, D=512, delta=0.0722):
+    """The voxel work (``ops/cuda/voxel.py``) at a 128^3 slab on volumes
+    of N(0, 1) in bf16: each kept group's seven taps (``VOXEL_GROUPS``,
+    the structured parts) and the coarse term hoisted over the grid (two
+    scales of seven (r^3, 512) taps), one launch each, held to float64
+    over every element (``f64_errors``: within one bf16 round-off, 2^-8
+    |f64| + 2^-20 of the same sum over |volumes|) with the plain version's
+    error beside, and timed beside the plain version (CUDA events, few
+    repetitions)."""
+    bf = torch.bfloat16
+    g = torch.Generator(device='cpu').manual_seed(17)
+    n, per, ok = R ** 3, [], True
+    for r, C in VOXEL_GROUPS:
+        vol = torch.randn(r, r, r, C, generator=g).to(dev, bf)
+        kt = voxel.KeptTaps(vol, R, R, delta, -0.5, 0.5)
+        pl = voxel.KeptTaps(vol, R, R, delta, -0.5, 0.5, plain=True)
+        before = voxel.launches
+        got = kt.slab(0)
+        torch.cuda.synchronize(dev)
+        launched, vec = voxel.launches - before, voxel.vec_path
+        plain = pl.slab(0)
+        cols = [(got[0], plain[0], t * C) for t in range(5)] \
+            + [(got[1], plain[1], 0), (got[2], plain[2], 0)]
+        errs = [(voxel.f64_errors(a[:, o:o + C], [(vol, (sx, sy, sz))], R,
+                                  0, R, delta),
+                 voxel.f64_errors(b[:, o:o + C], [(vol, (sx, sy, sz))], R,
+                                  0, R, delta))
+                for (a, b, o), (sx, (sy, sz)) in zip(cols, voxel.TAPS)]
+        gap = max(float((a[:, o:o + C].float() - b[:, o:o + C].float())
+                        .abs().max()) for a, b, o in cols)
+        del got, plain, cols
+        row = dict(shape=f'{r}^3 x {C} -> n={n} x 7 taps', launches=launched,
+                   vec=vec, f64_err=max(e[0][0] for e in errs),
+                   f64_use=max(e[0][1] for e in errs),
+                   plain_f64_err=max(e[1][0] for e in errs),
+                   plain_f64_use=max(e[1][1] for e in errs),
+                   max_abs_err=gap,
+                   ms=time_ms(lambda: kt.slab(0), 5, 1, device=dev),
+                   plain_ms=time_ms(lambda: pl.slab(0), 2, 1, device=dev),
+                   bound_ms=voxel.bound_ms(voxel.kept_bytes(n, r, C)))
+        ok = ok and launched == 1 and row['f64_use'] <= 1.0
+        per.append(row)
+        del kt, pl, vol
+    taps = [[torch.randn(r, r, r, D, generator=g).to(dev, bf)
+             for _ in range(7)] for r in VOXEL_COARSE]
+    before = voxel.launches
+    got = voxel.CoarseTerm(taps, R, R, delta, -0.5, 0.5, (0, R), True)
+    torch.cuda.synchronize(dev)
+    launched, vec = voxel.launches - before, voxel.vec_path
+    plain = voxel.CoarseTerm(taps, R, R, delta, -0.5, 0.5, (0, R), True,
+                             plain=True)
+    terms = [(P[t], (sx, sy, sz)) for P in taps
+             for t, (sx, (sy, sz)) in enumerate(voxel.TAPS)]
+    err, use = voxel.f64_errors(got.slab(0), terms, R, 0, R, delta)
+    perr, puse = voxel.f64_errors(plain.slab(0), terms, R, 0, R, delta)
+    gap = float((got.slab(0).float() - plain.slab(0).float()).abs().max())
+    del got, plain
+    row = dict(shape=f'{"^3 + ".join(map(str, VOXEL_COARSE))}^3 x 7 taps x '
+                     f'{D} -> n={n} x {D}', launches=launched, vec=vec,
+               f64_err=err, f64_use=use, plain_f64_err=perr,
+               plain_f64_use=puse, max_abs_err=gap,
+               ms=time_ms(lambda: voxel.CoarseTerm(
+                   taps, R, R, delta, -0.5, 0.5, (0, R), True), 5, 1,
+                   device=dev),
+               plain_ms=time_ms(lambda: voxel.CoarseTerm(
+                   taps, R, R, delta, -0.5, 0.5, (0, R), True, plain=True),
+                   2, 1, device=dev),
+               bound_ms=voxel.bound_ms(voxel.coarse_bytes(n, VOXEL_COARSE,
+                                                          D)))
+    ok = ok and launched == 1 and use <= 1.0
+    per.append(row)
+    del taps
+    out = dict(unit=f'mesh ({len(per)} launches, a 128^3 slab)',
+               launches=sum(r['launches'] for r in per),
+               ms=sum(r['ms'] for r in per),
+               plain_ms=sum(r['plain_ms'] for r in per),
+               bound_ms=sum(r['bound_ms'] for r in per), bound_by='bytes',
+               max_abs_err=max(r['max_abs_err'] for r in per),
+               f64_use=max(r['f64_use'] for r in per),
+               tol='per element <= 2^-8 |f64| + 2^-20 f64 of |volumes| '
+                   '(f64_use <= 1), all n x C', ok=ok, per_shape=per)
+    print('kernel voxel_taps', json.dumps(out), flush=True)
+    if not ok:
+        fail('voxel_taps disagrees with float64 beyond one bf16 round-off, '
+             'or launched other than once a call')
+    return out
 
 
 def _uniform(g, dev):
@@ -2246,7 +2367,8 @@ def split_decode_check(cfg, model, img, fused_fc0, stencil3d, card_line):
                bitwise=bool(np.array_equal(got, ref)), max_abs_err=err,
                tol=tol, same_slab_ranges_bitwise=same_slab)
     print('split decode', json.dumps(rec), flush=True)
-    want = decode_launches(slab=R // len(SPLIT), encodes=(1,))
+    want = decode_launches(slab=R // len(SPLIT), encodes=(1,),
+                           cards=len(SPLIT))
     if counts != want:
         fail(f'split decode: launches {counts}, expected {want}')
     if not (np.isfinite(got).all() and err <= tol and same_slab):
@@ -2454,11 +2576,12 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
     production decode (n = 128^3) and K4 at one slab (n = 64 x 128^2),
     and the differentiable conv3x3x3 (K2's dx and K3 inside
     Conv3x3x3Fn.backward, batch 2), the BatchNorm path at its shapes
-    (``bn_phase``) and the perceptual sample (``percep_phase``); each
+    (``bn_phase``), the perceptual sample (``percep_phase``) and the
+    voxel work (``voxel_phase``); each
     against its plain version within the kernel phase's tolerances and
     1e-2 + 1e-2 |plain| (BatchNorm: BN_LIMITS; the sample: float64), and
     timed with CUDA events on its card; every kernel launched."""
-    from list_tpu_torch.ops.cuda import batch_norm, percep
+    from list_tpu_torch.ops.cuda import batch_norm, percep, voxel
     rows = []
     for d in devs:
         reset_launch_counts()
@@ -2472,6 +2595,7 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
             mlp = mlp_phase(d, fused_fc0, 64 * 128 ** 2)
             torch.cuda.empty_cache()
             sample = percep_phase(d, percep)
+            vox = voxel_phase(d, voxel)
         grads = grad_fn_phase(d, stencil3d)
         counts = launch_counts()
         _current_is_first(f'the kernels on {d}')
@@ -2484,7 +2608,7 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
             fused_stack_head=head['ok'], fused_fc0_mlp=mlp['ok'],
             batch_norm=all(r['ok'] for r in bn_step['per_shape']
                            + bn_request['per_shape']),
-            percep_sample=sample['ok'])
+            percep_sample=sample['ok'], voxel_taps=vox['ok'])
         row = dict(device=str(d), card=lines[d.index], launches=counts,
                    within_1e2_plus_1e2_plain=within,
                    ms=dict(conv3x3x3_step=conv['ms'],
@@ -2493,15 +2617,18 @@ def cards_kernel_phase(devs, lines, stencil3d, fused_fc0):
                            fused_fc0_mlp=mlp['ms'],
                            batch_norm_step=bn_step['ms'],
                            batch_norm_request=bn_request['ms'],
-                           percep_sample=sample['ms']),
+                           percep_sample=sample['ms'],
+                           voxel_taps=vox['ms']),
                    max_abs_err=dict(conv3x3x3=conv['max_abs_err'],
                                     conv3x3x3_dk=dk['max_abs_err'],
                                     fused_stack_head=head['max_abs_err'],
                                     fused_fc0_mlp=mlp['max_abs_err'],
                                     batch_norm=bn_step['max_abs_err'],
-                                    percep_sample=sample['max_abs_err']),
+                                    percep_sample=sample['max_abs_err'],
+                                    voxel_taps=vox['max_abs_err']),
                    conv=conv, dk=dk, head=head, mlp=mlp, gradients=grads,
-                   batch_norm=[bn_step, bn_request], percep_sample=sample)
+                   batch_norm=[bn_step, bn_request], percep_sample=sample,
+                   voxel_taps=vox)
         print('card kernels', json.dumps({k: row[k] for k in (
             'device', 'card', 'launches', 'within_1e2_plus_1e2_plain', 'ms',
             'max_abs_err')}), flush=True)
@@ -2667,7 +2794,8 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
                        no_waits_bitwise=bool(torch.equal(gw, g)),
                        max_abs_err=err)
             del g, g1, gt_, gw
-        want = decode_launches(True, R, *plan, meshes=CARDS_DECODE_REPS + 2)
+        want = decode_launches(True, R, *plan, meshes=CARDS_DECODE_REPS + 2,
+                               cards=n)
         want1 = decode_launches(True, R, *plan1,
                                 meshes=CARDS_DECODE_REPS + 2)
         print('cards decode', json.dumps(rec), flush=True)
@@ -2725,7 +2853,7 @@ def cards_decode_phase(args, devs, lines, model, imgs, gt):
             scores_one_card=score1, launches=counts)
         # a batch of 2 and a test: two encodes, three meshes
         want = decode_launches(True, 128, *ex._dense_plan(n), meshes=3,
-                               encodes=(2, 1))
+                               encodes=(2, 1), cards=n)
         if counts != want:
             fail(f'--mesh_shape {list(s)}: a batch of 2 and a test '
                  f'launched {counts}, expected {want}')
@@ -2759,7 +2887,7 @@ def cards_sweep_phase(devs, root, ckpt, stencil3d, fused_fc0):
         rec = sweep_run(cfg, label, stencil3d, fused_fc0)
         k1 = 1 if not kw else n  # slab 128 on one card, 128 / n split
         want = decode_launches(slab=128 // k1, meshes=SWEEP_SHAPES,
-                               encodes=(1,) * SWEEP_SHAPES)
+                               encodes=(1,) * SWEEP_SHAPES, cards=k1)
         if rec['launches'] != want:
             fail(f'sweep {label}: launches {rec["launches"]}, expected '
                  f'{want}')
@@ -3174,7 +3302,7 @@ def main():
         from list_tpu_torch.models import LIST
         from list_tpu_torch.ops.cuda import (KERNEL_SOURCES, batch_norm,
                                              build, fused_fc0, percep,
-                                             stencil3d)
+                                             stencil3d, voxel)
         from list_tpu_torch.ops.dense_grid import dense_grid_sdf
         from list_tpu_torch.train import LISTExecutor
         from list_tpu_torch.utils.meshio import make_icosphere
@@ -3236,6 +3364,7 @@ def main():
     torch.cuda.empty_cache()
     with torch.inference_mode():
         percep_row = percep_phase(dev, percep)
+        voxel_row = voxel_phase(dev, voxel)
     torch.cuda.empty_cache()
 
     # ---- path phase: full-width LIST at 128^3 ------------------------------
@@ -3472,12 +3601,19 @@ def main():
              plain_ms=percep_row['plain_ms'], bound_ms=percep_row['bound_ms'],
              bound_by=percep_row['bound_by'],
              library_ms=percep_row['library_ms']),
+        dict(name='voxel_taps', route='cuda', source=voxel.SOURCE,
+             replaces=None, library=None,
+             launches=request_launches['voxel_taps'],
+             per=voxel_row['unit'], max_abs_err=voxel_row['max_abs_err'],
+             f64_use=voxel_row['f64_use'], ms=voxel_row['ms'],
+             plain_ms=voxel_row['plain_ms'], bound_ms=voxel_row['bound_ms'],
+             bound_by=voxel_row['bound_by'], library_ms=None),
     ]
     report = dict(card=card_line, kind=kind, kernels=kernels,
                   conv_inference=conv, conv_train=conv_train, dk=dk,
                   conv_gradients_on_card=grads_on_card, head=head, mlp=mlp,
                   batch_norm=dict(train=bn_train, request=bn_eval),
-                  percep_sample=percep_row,
+                  percep_sample=percep_row, voxel_taps=voxel_row,
                   requests=requests, peak_device_gb=peak_gb,
                   no_waits=no_waits,
                   small_input_err=ref_err, small_input_k4_err=k4_err,

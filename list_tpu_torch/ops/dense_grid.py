@@ -5,14 +5,15 @@ The inference queries are the regular grid ``linspace(bb_min, bb_max, R)``,
 so trilinear sampling factorizes per axis with static indices and weights
 (the numpy plans below are copies of the JAX package's).  Per x-slab:
 
-1. Voxel features: same-resolution kept scales are grouped, resampled in z
-   and y to R (five tap variants), and the x-lerp of all seven displacement
-   taps is one banded-matrix product per group, giving the structured
-   parts ``[A5 | Ax- | Ax+]``.
+1. Voxel features (``ops/cuda/voxel.py`` ``KeptTaps``): same-resolution
+   kept scales are grouped, and each group's seven displacement taps at the
+   slab's queries give the structured parts ``[A5 | Ax- | Ax+]``.
 2. Coarse-projected scales (source resolution <= ``coarse_proj``): their
-   tiny volumes are projected through the fc_0 tap blocks first, the seven
-   taps fold into three volumes, and one banded product per slab (or once,
-   hoisted) gives their summed fc_0 term.
+   tiny volumes are projected through the fc_0 tap blocks first, and the
+   seven projected taps of every scale at the queries, summed, give their
+   fc_0 term (``voxel.py`` ``CoarseTerm``), per slab or once, hoisted.
+   On the card each is one launch of the ``voxel_taps`` kernel; on the CPU
+   the plain version (z/y tap variants, banded x-lerp products).
 3. Perceptual maps are resized once and projected through the fc_0 percep
    rows before the 4-corner bilinear gather (``percep_maps`` and
    ``percep_sample``, the block DISN's decode shares).
@@ -40,7 +41,6 @@ product (exact), and where it casts straight back, the cast follows.
 
 from __future__ import annotations
 
-import functools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +48,7 @@ import torch
 
 from list_tpu_torch.ops.consts import device_const
 from list_tpu_torch.ops.cuda import percep as percep_cuda
+from list_tpu_torch.ops.cuda import voxel
 from list_tpu_torch.ops.cuda.percep import PERCEP_MAP
 from list_tpu_torch.ops.cuda.fused_fc0 import (fused_fc0_mlp,
                                                fused_stack_head,
@@ -55,48 +56,15 @@ from list_tpu_torch.ops.cuda.fused_fc0 import (fused_fc0_mlp,
 from list_tpu_torch.ops.sampling import resize_bilinear_align_corners
 from list_tpu_torch.utils.spans import span
 
-# taps in the reference displacement order d=0..6: (x_shift_sign, (sy, sz))
-TAPS = ((0, (0, 0)), (0, (0, -1)), (0, (0, 1)), (0, (-1, 0)),
-        (0, (1, 0)), (-1, (0, 0)), (1, (0, 0)))
-# x-tap variants of the coarse-projected path: (center, +x, -x)
-XTAPS = ((0, None), (1, None), (-1, None))
+_mm32 = voxel.mm32
 
 
-# ---- static numpy plans (copies of the JAX package's) -----------------------
-
-def _axis_positions(r_out: int, r_in: int, shift: float,
-                    bb_min: float = -0.5, bb_max: float = 0.5) -> np.ndarray:
-    w = bb_min + np.arange(r_out) * (bb_max - bb_min) / max(r_out - 1, 1)
-    pos = (2.0 * w + 1.0) * 0.5 * (r_in - 1) + shift
-    return np.clip(pos, 0.0, r_in - 1)
-
-
-def _axis_plan(r_out: int, r_in: int, shift: float,
-               bb_min: float = -0.5, bb_max: float = 0.5):
-    """Static (i0, i1, w) for 1-D border-clamped linear resampling."""
-    pos = _axis_positions(r_out, r_in, shift, bb_min, bb_max)
-    i0 = np.floor(pos).astype(np.int32)
-    w = (pos - i0).astype(np.float32)
-    i1 = np.minimum(i0 + 1, r_in - 1).astype(np.int32)
-    return i0, i1, w
-
-
-def norm_shift(s: float, r_in: int) -> float:
-    """Normalized-space displacement -> input-voxel units."""
-    return s * (r_in - 1) / 2.0
-
+# ---- fc_0 rows of the voxel taps ----------------------------------------------
 
 def _scale_w1_rows(channels: Sequence[int], scale_idx: int) -> np.ndarray:
     """fc_0 rows of one scale in the (disp, channel) stack order."""
     offset = sum(channels[:scale_idx])
     return np.asarray([(offset + ch) * 7 + d for d in range(7)
-                       for ch in range(channels[scale_idx])], np.int64)
-
-
-def _tap_w1_rows(channels: Sequence[int], scale_idx: int,
-                 tap: int) -> np.ndarray:
-    offset = sum(channels[:scale_idx])
-    return np.asarray([(offset + ch) * 7 + tap
                        for ch in range(channels[scale_idx])], np.int64)
 
 
@@ -110,92 +78,6 @@ def _group_w1_rows(channels: Sequence[int], group: Sequence[int]
             offset = sum(channels[:si])
             rows += [(offset + ch) * 7 + d for ch in range(channels[si])]
     return np.asarray(rows, np.int64)
-
-
-def _slab_x_plans(R, r_in, x0, S, delta, bb_min, bb_max, taps=TAPS):
-    plans = {sgn: _axis_plan(R, r_in, norm_shift(delta * sgn, r_in),
-                             bb_min, bb_max) for sgn in (-1, 0, 1)}
-    lo = min(int(p[0][x0]) for p in plans.values())
-    hi = max(int(p[1][x0 + S - 1]) for p in plans.values()) + 1
-    L = np.zeros((len(taps), S, hi - lo), np.float32)
-    for t, (sgn, _) in enumerate(taps):
-        i0, i1, w = plans[sgn]
-        for s in range(S):
-            L[t, s, i0[x0 + s] - lo] += 1.0 - w[x0 + s]
-            L[t, s, i1[x0 + s] - lo] += w[x0 + s]
-    return lo, hi, L
-
-
-def _scan_x_plans_full(R, r_in, S, delta, bb_min, bb_max, taps=XTAPS):
-    """(nslabs, len(taps), S, r_in) full-window banded x-lerp matrices."""
-    assert R % S == 0, (R, S)
-    plans = {sgn: _axis_plan(R, r_in, norm_shift(delta * sgn, r_in),
-                             bb_min, bb_max) for sgn in (-1, 0, 1)}
-    L = np.zeros((R // S, len(taps), S, r_in), np.float32)
-    for t, (sgn, _) in enumerate(taps):
-        i0, i1, w = plans[sgn]
-        for x in range(R):
-            L[x // S, t, x % S, i0[x]] += 1.0 - w[x]
-            L[x // S, t, x % S, i1[x]] += w[x]
-    return L
-
-
-def _scan_x_plans(R, r_in, S, delta, bb_min, bb_max, taps=TAPS):
-    """Shape-uniform per-slab plans: (los (nslabs,), Ls (nslabs, len(taps),
-    S, r_max)); window starts clamped so lo + r_max <= r_in."""
-    assert R % S == 0, (R, S)
-    raw = [_slab_x_plans(R, r_in, k * S, S, delta, bb_min, bb_max, taps)
-           for k in range(R // S)]
-    r_max = max(hi - lo for lo, hi, _ in raw)
-    los = np.zeros(R // S, np.int32)
-    Ls = np.zeros((R // S, len(taps), S, r_max), np.float32)
-    for k, (lo, hi, L7) in enumerate(raw):
-        lo2 = min(lo, r_in - r_max)
-        off = lo - lo2
-        los[k] = lo2
-        Ls[k, :, :, off:off + (hi - lo)] = L7
-    return los, Ls
-
-
-# the per-slab plans of an (R, r_in, S, delta, bb) once per process: the
-# decode reads their window starts on the host at every call
-_host_x_plans = functools.lru_cache(maxsize=64)(_scan_x_plans)
-
-
-# ---- tensor helpers ----------------------------------------------------------
-
-def resample_axis(vol: torch.Tensor, axis: int, r_out: int, shift: float,
-                  bb_min: float = -0.5, bb_max: float = 0.5) -> torch.Tensor:
-    """Border-clamped linear resample of one axis (static indices, kept on
-    the device)."""
-    key = (r_out, int(vol.shape[axis]), shift, bb_min, bb_max)
-    plan = lambda: _axis_plan(*key)  # noqa: E731
-    idx = device_const(('resample_idx',) + key,
-                       lambda: np.stack(plan()[:2]), vol.device, torch.long)
-    wshape = [1] * vol.ndim
-    wshape[axis] = r_out
-    w = device_const(('resample_w',) + key, lambda: plan()[2], vol.device,
-                     vol.dtype).reshape(wshape)
-    v0 = vol.index_select(axis, idx[0])
-    v1 = vol.index_select(axis, idx[1])
-    return v0 * (1.0 - w) + v1 * w
-
-
-def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """f32 product of (possibly bf16) operands with f32 accumulation."""
-    return a.float() @ b.float()
-
-
-def _xlerp(L: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
-    """einsum('sr,ryz...->syz...') with an f32 result."""
-    return _mm32(L, V.reshape(V.shape[0], -1)).reshape(
-        (L.shape[0],) + tuple(V.shape[1:]))
-
-
-def _dyn_slice0(v: torch.Tensor, start: int, size: int) -> torch.Tensor:
-    """lax.dynamic_slice on axis 0: the start is clamped into range."""
-    start = max(0, min(int(start), v.shape[0] - size))
-    return v[start:start + size]
 
 
 # ---- the perceptual block (LIST's and DISN's dense decodes) -----------------
@@ -259,17 +141,21 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
     (1, H, W, C) pyramid maps; trans_mat (1, 4, 3).  ``slab`` defaults to R
     (the whole grid in one step).  ``hoist_variants`` (auto: R <= 128 and
     slab <= 16) builds each group's z/y tap variants once for the whole
-    volume; ``coarse_outside`` (auto: R <= 128) computes the coarse term for
-    the whole grid once, cast to the compute dtype.  ``use_pallas`` picks
+    volume in the plain version (on the card it changes nothing: the
+    kernel builds no variants); ``coarse_outside`` (auto: R <= 128)
+    computes the coarse term for the x rows once, in the compute dtype,
+    else per slab in f32.  ``use_pallas`` picks
     the head (module docstring): 0 and 2 take the structured parts, 1 the
     per-scale stacks.
 
     Spans (``utils/spans.py``, with events on the features' device):
     ``decode.percep``, the perceptual maps' resize and fc_0 projection,
     then in each slab the pixel projection, the 4-corner gather and the
-    bilinear; ``decode.voxel``, the groups' z/y variants, the coarse term,
-    then in each slab the x-lerps that build the parts.  The head is
-    neither.
+    bilinear; ``decode.voxel``, the groups' setup (the plain version's
+    hoisted z/y variants), the coarse taps' projection and, hoisted, the
+    coarse term, then in each slab the groups' taps and the slab's coarse
+    term (on the card one ``voxel_taps`` launch a group and one for the
+    coarse term).  The head is neither.
     """
     R = vox_res
     S = R if slab is None else int(slab)
@@ -336,96 +222,31 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
     with span('decode.voxel', dev):
         vols = [f[0].to(dt) for f in vox_feats]
         n = S * R * R
-        nslabs = R // S
-        ent_vols = [vols[g[0]] if len(g) == 1
-                    else torch.cat([vols[si] for si in g], dim=-1)
-                    for g in groups]
-        ent_chs = [sum(channels[si] for si in g) for g in groups]
-        plan_los, plan_Ls = [], []
-        for g in groups:
-            key = (R, int(vols[g[0]].shape[0]), S, delta, bb_min, bb_max)
-            # the window starts stay host integers (_dyn_slice0's)
-            plan_los.append(_host_x_plans(*key)[0])
-            plan_Ls.append(device_const(('x_plans',) + key,
-                                        lambda key=key: _host_x_plans(*key)[1],
-                                        dev, dt))
-
         if hoist_variants is None:
             hoist_variants = R <= 128 and S <= 16
-        hoist = bool(hoist_variants) and structured
-        ent_ident = []
-        for f in ent_vols:
-            i0, _, w = _axis_plan(R, f.shape[0], 0.0, bb_min, bb_max)
-            ent_ident.append(bool((w == 0).all()
-                                  and (i0 == np.arange(R)).all()))
+        kept_taps = [voxel.KeptTaps(
+            vols[g[0]] if len(g) == 1
+            else torch.cat([vols[si] for si in g], dim=-1),
+            R, S, delta, bb_min, bb_max, hoist=hoist_variants,
+            structured=structured) for g in groups]
 
-        def zy_variants(f, r_in):
-            dz = norm_shift(delta, r_in)
-            z0 = resample_axis(f, 2, R, 0.0, bb_min, bb_max)
-            zp = resample_axis(f, 2, R, dz, bb_min, bb_max)
-            zm = resample_axis(f, 2, R, -dz, bb_min, bb_max)
-            return {
-                (0, 0): resample_axis(z0, 1, R, 0.0, bb_min, bb_max),
-                (1, 0): resample_axis(z0, 1, R, dz, bb_min, bb_max),
-                (-1, 0): resample_axis(z0, 1, R, -dz, bb_min, bb_max),
-                (0, 1): resample_axis(zp, 1, R, 0.0, bb_min, bb_max),
-                (0, -1): resample_axis(zm, 1, R, 0.0, bb_min, bb_max),
-            }
-
-        if hoist:
-            ent_vols = [torch.cat([v[key] for (_, key) in TAPS[:5]], dim=-1)
-                        for v in (zy_variants(f, f.shape[0])
-                                  for f in ent_vols)]
-
-        # coarse-projected volumes, folded through the fc_0 tap blocks
-        proj_vols = []
-        for si in proj:
-            V = vols[si]
-            r_in = V.shape[0]
-            dz = norm_shift(delta, r_in)
-
-            def P(t, si=si, V=V):
-                return _mm32(V, w1v[rows(
-                    ('tap', si, t),
-                    lambda: _tap_w1_rows(channels, si, t))].to(dt)).to(dt)
-
-            def rz(v, s):
-                return resample_axis(v, 2, R, s, bb_min, bb_max)
-
-            def ry(v, s):
-                return resample_axis(v, 1, R, s, bb_min, bb_max)
-
-            # TAPS order: t0 center, t1 z-, t2 z+, t3 y-, t4 y+, t5 x-, t6 x+
-            Tc = rz(P(0), 0.0) + rz(P(2), dz) + rz(P(1), -dz)
-            U0 = ry(Tc, 0.0) + ry(rz(P(4), 0.0), dz) + ry(rz(P(3), 0.0), -dz)
-            Uxp = ry(rz(P(6), 0.0), 0.0)
-            Uxm = ry(rz(P(5), 0.0), 0.0)
-            proj_vols.extend(U.reshape(r_in, R * R, U.shape[-1])
-                             for U in (U0, Uxp, Uxm))
-
-        if coarse_outside is None:
-            coarse_outside = R <= 128
-        outside = bool(proj) and coarse_outside
-        Ucat = Lcat = Cfull = None
+        # coarse-projected volumes through the fc_0 tap blocks, P(t): one
+        # product a scale against its rows (channel, tap), columns
+        # [P(0) | ... | P(6)]
+        coarse_term = None
         if proj:
-            Ucat = torch.cat(proj_vols, dim=0)  # (Ktot, R*R, 512)
-            r_ins = tuple(int(vols[si].shape[0]) for si in proj)
-
-            def coarse_plans():
-                return np.concatenate(
-                    [np.transpose(_scan_x_plans_full(R, r_in, S, delta, bb_min,
-                                                     bb_max),
-                                  (0, 2, 1, 3)).reshape(nslabs, S, -1)
-                     for r_in in r_ins], axis=-1)
-
-            Lcat = device_const(('coarse_x_plans', R, S, delta, bb_min, bb_max,
-                                 r_ins), coarse_plans, dev, dt)
-            if outside:
-                # the x rows' coarse term once, cast to the compute dtype
-                Cfull = _mm32(Lcat[k0:k1].reshape(x1 - x0, -1),
-                              Ucat.reshape(Ucat.shape[0], -1)).to(dt)
-                Cfull = Cfull.reshape(x1 - x0, R * R, -1)
-                Ucat = None
+            taps = []
+            for si in proj:
+                off, C = 7 * sum(channels[:si]), channels[si]
+                P7 = _mm32(vols[si], w1v[off:off + 7 * C].reshape(
+                    C, -1).to(dt)).to(dt)
+                D = P7.shape[-1] // 7
+                taps.append([P7[..., t * D:(t + 1) * D] for t in range(7)])
+            if coarse_outside is None:
+                coarse_outside = R <= 128
+            coarse_term = voxel.CoarseTerm(taps, R, S, delta, bb_min, bb_max,
+                                           (x0, x1), coarse_outside)
+            del taps
 
     w2 = decoder.fc_1.weight.t()
     w3 = decoder.fc_2.weight.t()
@@ -439,47 +260,8 @@ def dense_grid_slabs(decoder, vox_feats: List[torch.Tensor],
     for k in range(k0, k1):
         xs = k * S
         with span('decode.voxel', dev):
-            parts = []
-            for gi, f in enumerate(ent_vols):
-                ch = ent_chs[gi]
-                L7 = plan_Ls[gi][k]
-                r_max = L7.shape[-1]
-                if hoist:
-                    sub = _dyn_slice0(f, plan_los[gi][k], r_max)
-                    if ent_ident[gi]:
-                        A5 = _dyn_slice0(f, xs, S).reshape(n, 5 * ch)
-                    else:
-                        A5 = _xlerp(L7[0], sub).to(dt).reshape(n, 5 * ch)
-                    Vx = sub[..., :ch]
-                else:
-                    r_in = f.shape[0]
-                    sub = _dyn_slice0(f, plan_los[gi][k], r_max)
-                    variants = zy_variants(sub, r_in)
-                    if not structured:
-                        # (7, r, R, R, C): each tap's source rows; one batched
-                        # x-lerp 'tsr,tryzc->tsyzc' (f32), cast, f32 freed
-                        V7 = torch.stack([variants[key] for (_, key) in TAPS])
-                        del variants
-                        A = torch.bmm(L7.float(),
-                                      V7.reshape(7, r_max, -1).float())
-                        del V7
-                        parts.append(A.to(dt).reshape(7, n, ch))
-                        del A
-                        continue
-                    Vcat = torch.cat([variants[key] for (_, key) in TAPS[:5]],
-                                     dim=-1)
-                    A5 = _xlerp(L7[0], Vcat).to(dt).reshape(n, 5 * ch)
-                    Vx = variants[(0, 0)]
-                Axm = _xlerp(L7[5], Vx).to(dt).reshape(n, ch)
-                Axp = _xlerp(L7[6], Vx).to(dt).reshape(n, ch)
-                parts += [A5.contiguous(), Axm, Axp]
-
-            coarse = None
-            if outside:
-                coarse = Cfull[xs - x0:xs - x0 + S].reshape(n, -1)
-            elif Ucat is not None:
-                coarse = _mm32(Lcat[k], Ucat.reshape(Ucat.shape[0], -1)
-                               ).reshape(n, -1)
+            parts = [p for kt in kept_taps for p in kt.slab(k)]
+            coarse = None if coarse_term is None else coarse_term.slab(k)
 
         # perceptual part from the projected 512-channel map
         with span('decode.percep', dev):

@@ -7,6 +7,7 @@ machine with only PyTorch:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import copy
 import time
 
 import numpy as np
@@ -578,6 +579,195 @@ def test_percep_sample_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     assert percep.launches == before
 
 
+# ---- the voxel work (ops/cuda/voxel.py) -----------------------------------
+
+# LIST's dense decode at a 128^3 slab from a 128^3 encoding: each kept
+# group's (r, C) and the coarse term (16^3 and 8^3 scales of 512 channels)
+VOXEL_CASES = {'group_128x17': (128, 17), 'group_64x32': (64, 32),
+               'group_32x64': (32, 64), 'coarse': None}
+VOXEL_DELTA = 0.0722
+
+
+def _voxel_check(got, plain, terms, R, x0, nx, rel=2.0 ** -8):
+    """(kernel's, plain version's) (max abs error, tolerance use) against
+    float64 over every element (``voxel.f64_errors``)."""
+    from list_tpu_torch.ops.cuda import voxel
+    return tuple(voxel.f64_errors(t, terms, R, x0, nx, VOXEL_DELTA, rel=rel)
+                 for t in (got, plain))
+
+
+@pytest.mark.parametrize('case', list(VOXEL_CASES))
+def test_voxel_taps_kernel_matches_float64(cuda, case):
+    """One launch at a 128^3 slab on N(0, 1) bf16 volumes: every element
+    within one bf16 round-off of float64 (2^-8 |f64| + 2^-20 of the same
+    sum over |volumes|), where the plain version rounds after each of its
+    passes (its error printed beside); the 17-channel group takes single
+    channels, the others 4-channel vectors."""
+    from list_tpu_torch.ops.cuda import voxel
+    R, bf = 128, torch.bfloat16
+    g = torch.Generator(device='cpu').manual_seed(29)
+    before = voxel.launches
+    if VOXEL_CASES[case] is None:
+        taps = [[torch.randn(r, r, r, 512, generator=g).to(cuda, bf)
+                 for _ in range(7)] for r in (16, 8)]
+        args = (taps, R, R, VOXEL_DELTA, -0.5, 0.5, (0, R), True)
+        got = voxel.CoarseTerm(*args).slab(0)
+        torch.cuda.synchronize()
+        assert voxel.launches == before + 1 and voxel.vec_path == 4
+        plain = voxel.CoarseTerm(*args, plain=True).slab(0)
+        terms = [(P[t], (sx, sy, sz)) for P in taps
+                 for t, (sx, (sy, sz)) in enumerate(voxel.TAPS)]
+        checks = [_voxel_check(got, plain, terms, R, 0, R)]
+    else:
+        r, C = VOXEL_CASES[case]
+        vol = torch.randn(r, r, r, C, generator=g).to(cuda, bf)
+        got = voxel.KeptTaps(vol, R, R, VOXEL_DELTA, -0.5, 0.5).slab(0)
+        torch.cuda.synchronize()
+        assert voxel.launches == before + 1
+        assert voxel.vec_path == (1 if C % 4 else 4)
+        plain = voxel.KeptTaps(vol, R, R, VOXEL_DELTA, -0.5, 0.5,
+                               plain=True).slab(0)
+        assert [tuple(t.shape) for t in got] == [tuple(t.shape)
+                                                 for t in plain]
+        cols = [(0, t * C) for t in range(5)] + [(1, 0), (2, 0)]
+        checks = [_voxel_check(got[i][:, o:o + C], plain[i][:, o:o + C],
+                               [(vol, (sx, sy, sz))], R, 0, R)
+                  for (i, o), (sx, (sy, sz)) in zip(cols, voxel.TAPS)]
+    (err, use), (plain_err, plain_use) = (
+        (max(c[j][0] for c in checks), max(c[j][1] for c in checks))
+        for j in (0, 1))
+    print(f'voxel {case}: kernel {err:.3g} ({use:.3f} of one bf16 '
+          f'round-off), plain {plain_err:.3g} ({plain_use:.3f}) off float64')
+    assert use <= 1.0
+
+
+# (R, structured, kept (r, C) or coarse scales, slab, x range, hoisted):
+# the t-major stacks at C = 3 (single channels) and an x range whose rows
+# are no whole number of the kernel's 16-row walk; the parts at r = R (the
+# identity plans) and C = 12; the coarse term of three scales per slab in
+# f32 and hoisted over an x range in bf16
+VOXEL_SHAPES = [
+    ('stacks_r20_c3', 40, False, (20, 3), 8, (8, 32), None),
+    ('parts_r40_c12', 40, True, (40, 12), 8, (16, 40), None),
+    ('coarse_per_slab_f32', 40, None, (10, 5, 3), 8, (8, 32), False),
+    ('coarse_hoisted_bf16', 40, None, (10, 5, 3), 8, (8, 32), True)]
+
+
+@pytest.mark.parametrize('name,R,structured,shape,slab,x_range,outside',
+                         VOXEL_SHAPES, ids=[c[0] for c in VOXEL_SHAPES])
+def test_voxel_taps_kernel_shapes(cuda, name, R, structured, shape, slab,
+                                  x_range, outside):
+    """Each slab of the range against float64 (one round-off of the
+    output's type: bf16, or f32 for the per-slab coarse term), one launch
+    a slab (a kept group; a coarse term per slab) or one a range (the
+    hoisted coarse term)."""
+    from list_tpu_torch.ops.cuda import voxel
+    bf = torch.bfloat16
+    g = torch.Generator(device='cpu').manual_seed(31)
+    before = voxel.launches
+    ks = range(x_range[0] // slab, x_range[1] // slab)
+    if structured is None:
+        taps = [[torch.randn(r, r, r, 16, generator=g).to(cuda, bf)
+                 for _ in range(7)] for r in shape]
+        term = voxel.CoarseTerm(taps, R, slab, VOXEL_DELTA, -0.5, 0.5,
+                                x_range, outside)
+        terms = [(P[t], (sx, sy, sz)) for P in taps
+                 for t, (sx, (sy, sz)) in enumerate(voxel.TAPS)]
+        outs = [(term.slab(k), terms) for k in ks]
+        want = 1 if outside else len(ks)
+        rel = 2.0 ** -8 if outside else 2.0 ** -24
+        assert all(o.dtype == (bf if outside else torch.float32)
+                   for o, _ in outs)
+    else:
+        r, C = shape
+        vol = torch.randn(r, r, r, C, generator=g).to(cuda, bf)
+        kt = voxel.KeptTaps(vol, R, slab, VOXEL_DELTA, -0.5, 0.5,
+                            structured=structured)
+        outs = []
+        for k in ks:
+            got = kt.slab(k)
+            if structured:
+                cols = [(got[0], t * C) for t in range(5)] \
+                    + [(got[1], 0), (got[2], 0)]
+            else:
+                assert tuple(got[0].shape) == (7, slab * R * R, C)
+                cols = [(got[0][t], 0) for t in range(7)]
+            outs += [(a[:, o:o + C], [(vol, (sx, sy, sz))])
+                     for (a, o), (sx, (sy, sz)) in zip(cols, voxel.TAPS)]
+        want, rel = len(ks), 2.0 ** -8
+    torch.cuda.synchronize()
+    assert voxel.launches == before + want
+    n = len(outs) // len(ks)
+    for i, (out, terms) in enumerate(outs):
+        k = ks[i // n]
+        _, use = voxel.f64_errors(out, terms, R, k * slab, slab, VOXEL_DELTA,
+                                  rel=rel)
+        assert use <= 1.0, (name, k, use)
+
+
+def _voxel_decoder(cuda):
+    """A LIST-shaped decode at R = 64 from VoxelEncoder2-like features
+    (64^3 x 1, 64^3 x 16, 32^3 x 32 kept; 16^3 x 64, 8^3 x 128 and 4^3 x
+    128 projected), two perceptual maps and K1's widths, on the CPU and on
+    the card."""
+    torch.manual_seed(3)
+    chans = ((64, 1), (64, 16), (32, 32), (16, 64), (8, 128), (4, 128))
+    din = sum(c for _, c in chans) * 7 + 24 + 3
+    dec = torch.nn.Module()
+    for name, a, b in (('fc_0', din, 512), ('fc_1', 512, 256),
+                       ('fc_2', 256, 256), ('fc_out', 256, 1)):
+        setattr(dec, name, torch.nn.Linear(a, b))
+    vox = [torch.rand(1, r, r, r, c) for r, c in chans]
+    feat = [torch.randn(1, 14, 14, 8), torch.randn(1, 7, 7, 16)]
+    tm = torch.tensor([[[60., 0., 0.], [0., 60., 0.], [0., 0., 1.],
+                        [68., 68., 2.]]])
+    cpu = (dec, vox, feat, tm)
+    card = (copy.deepcopy(dec).to(cuda), [v.to(cuda) for v in vox],
+            [f.to(cuda) for f in feat], tm.to(cuda))
+    return cpu, card
+
+
+def test_voxel_taps_in_the_dense_decode_on_the_card(cuda):
+    """``dense_grid_sdf`` at R = 64 on the card (K1, the kernel's 2 kept
+    groups and 1 hoisted coarse term: 3 launches) against the CPU's plain
+    decode within 2e-3 + 2e-2 max |grid|; in slabs of 16, the two halves
+    of the x rows give the whole grid's slabs bit for bit (4 x 2 + 1 and
+    2 x (2 x 2 + 1) launches)."""
+    from list_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from list_tpu_torch.ops.dense_grid import dense_grid_sdf
+    cpu, card = _voxel_decoder(cuda)
+    with torch.inference_mode():
+        reset_launch_counts()
+        got = dense_grid_sdf(*card, 64)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert (counts['voxel_taps'], counts['fused_stack_head'],
+                counts['percep_sample']) == (3, 1, 1)
+        ref = dense_grid_sdf(*cpu, 64)
+        err = float((got.cpu() - ref).abs().max())
+        assert err <= 2e-3 + 2e-2 * float(ref.abs().max()), err
+        reset_launch_counts()
+        whole = dense_grid_sdf(*card, 64, slab=16)
+        halves = torch.cat([dense_grid_sdf(*card, 64, slab=16, x_range=r)
+                            for r in ((0, 32), (32, 64))])
+        assert launch_counts()['voxel_taps'] == 9 + 10
+        assert torch.equal(whole, halves)
+
+
+def test_voxel_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    """f32 volumes on the card, and a group whose volume lies on another
+    device than its output, raise before any launch."""
+    from list_tpu_torch.ops.cuda import voxel
+    before = voxel.launches
+    with pytest.raises(TypeError, match='voxel_taps kernel takes bf16'):
+        voxel.KeptTaps(torch.zeros(8, 8, 8, 4, device=cuda), 16, 16,
+                       VOXEL_DELTA, -0.5, 0.5)
+    with pytest.raises(TypeError, match='voxel_taps kernel takes bf16'):
+        voxel.CoarseTerm([[torch.zeros(4, 4, 4, 8, device=cuda)] * 7], 16,
+                         16, VOXEL_DELTA, -0.5, 0.5, (0, 16), True)
+    assert voxel.launches == before
+
+
 # ---- several cards ---------------------------------------------------------
 
 def _need_cards(n):
@@ -589,10 +779,11 @@ def _need_cards(n):
 def test_kernels_launch_on_their_operands_card(cuda):
     """Each kernel on cuda:1 while cuda:0 is the current device: K2's
     forward, its dx and K3 through Conv3x3x3Fn's backward, K3 alone, K1,
-    K4 and the perceptual sample each launch on cuda:1 (counted once a
-    launch), agree with their plain versions there (the conv's tolerances
-    as above, the heads' 1e-2 + 1e-2 |plain|, the sample's 0.05 + 0.05
-    |plain|: a few bf16 round-offs of maps of unit scale), and leave
+    K4, the perceptual sample and voxel_taps each launch on cuda:1
+    (counted once a launch), agree with their plain versions there (the
+    conv's tolerances as above, the heads' 1e-2 + 1e-2 |plain|, the
+    sample's 0.05 + 0.05 |plain|: a few bf16 round-offs of maps of unit
+    scale; voxel_taps with float64 within one bf16 round-off), and leave
     cuda:0 current."""
     _need_cards(2)
     dev = torch.device('cuda', 1)
@@ -643,6 +834,16 @@ def test_kernels_launch_on_their_operands_card(cuda):
         got.float(), percep.percep_sample_plain(flat, t, *ps,
                                                 torch.bfloat16).float(),
         atol=0.05, rtol=0.05)
+    from list_tpu_torch.ops.cuda import voxel
+    vol = torch.randn(16, 16, 16, 8, generator=g_).to(dev, torch.bfloat16)
+    before = voxel.launches
+    got = voxel.KeptTaps(vol, 32, 32, VOXEL_DELTA, -0.5, 0.5).slab(0)
+    torch.cuda.synchronize(dev)
+    assert torch.cuda.current_device() == 0 and got[0].device == dev
+    assert voxel.launches == before + 1
+    _, use = voxel.f64_errors(got[1], [(vol, (-1, 0, 0))], 32, 0, 32,
+                              VOXEL_DELTA)
+    assert use <= 1.0
 
 
 def test_split_decode_over_the_cards_is_the_one_card_grid(cuda):
